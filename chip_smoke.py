@@ -1,0 +1,390 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port of ParIS+ on one NVIDIA card and check it.
+
+Run from the repository root, on a machine with a card and ``nvcc``:
+
+    python3 chip_smoke.py [--seed 0] [--log2-n 24] [--queries 64] [--k 8]
+
+Phases, each of which raises (exit code 1) on a failed check:
+
+  1. device   — the card's name, count, and ``nvidia-smi`` name/power limit;
+  2. build    — builds the CUDA kernels from ``src/repro_torch/kernels/csrc``
+                (one ``nvcc`` per source, in parallel) and prints ptxas lines;
+  3. quickstart — the README quickstart through the port on the card
+                (4096 x 128, k = 4, exact + epsilon 0.1 + budget 2 tiers),
+                held against the same engine on the plain versions and a
+                brute-force oracle;
+  4. full size — the paper's synthetic workload (Gaussian random walks,
+                n = 256, w = 16, card = 256) at N = 2**log2_n series made on
+                the card from ``--seed``: ``build_index``, ``exact_knn_batch``
+                (Q queries, k, round 4096, leaf 256) and ``knn_batch_tiered``
+                at epsilon 0.1 and budget 2. Launch counts are set to 0 just
+                before and read just after; every kernel must have launched.
+                Answers are held against an on-card brute-force oracle;
+  5. kernels  — each kernel against its plain version on the same inputs,
+                at the shapes the full-size path gave it, timed with CUDA
+                events beside its bound (the larger of bytes over 3.35 TB/s
+                and fp32 operations over 67 TFLOP/s, the H100 SXM peaks).
+
+The last three lines of standard output are the kernels' JSON object, the
+``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
+It imports no JAX: the port is the package ``repro_torch`` under ``src/``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+FP32_OPS_PER_S = 67e12  # H100 SXM, fp32 outside the tensor cores
+
+SRC = pathlib.Path(__file__).resolve().parent / "src"
+KERNEL_ROWS = {  # name -> (source, TPU kernel it replaces)
+    "paa_isax": ("src/repro_torch/kernels/csrc/paa_isax.cu",
+                 "src/repro/kernels/paa_isax.py:24"),
+    "lower_bound_sq_batch": ("src/repro_torch/kernels/csrc/lower_bound.cu",
+                             "src/repro/kernels/lower_bound.py:54"),
+    "euclid_sq": ("src/repro_torch/kernels/csrc/euclidean.cu",
+                  "src/repro/kernels/euclidean.py:21"),
+}
+
+
+class CheckFailed(AssertionError):
+    """A check of this script failed."""
+
+
+def expect(cond, what: str) -> None:
+    """Raise :class:`CheckFailed` unless ``cond`` holds."""
+    if not bool(cond):
+        raise CheckFailed(what)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def time_ms(fn, iters: int) -> float:
+    """Mean milliseconds of ``fn`` over ``iters`` calls, by CUDA events."""
+    import torch
+
+    fn()  # warm up
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def bound_ms(n_bytes: float, n_ops: float) -> tuple:
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def random_walks(num: int, n: int, gen, device) -> "torch.Tensor":
+    import torch
+
+    out = torch.empty((num, n), dtype=torch.float32, device=device)
+    chunk = 1 << 20
+    for s in range(0, num, chunk):
+        e = min(s + chunk, num)
+        out[s:e] = torch.randn((e - s, n), generator=gen,
+                               device=device).cumsum_(dim=1)
+    return out
+
+
+def oracle_knn(raw, qz, k: int, chunk: int = 8192) -> tuple:
+    """Brute force: direct-difference distances, stable (lower position) ties."""
+    import torch
+
+    n_q = qz.shape[0]
+    best_d = torch.full((n_q, k), float("inf"), device=raw.device)
+    best_p = torch.full((n_q, k), -1, dtype=torch.int64, device=raw.device)
+    for s in range(0, raw.shape[0], chunk):
+        x = raw[s:s + chunk]
+        d = ((x[None, :, :] - qz[:, None, :]) ** 2).sum(dim=-1)
+        pos = torch.arange(s, s + x.shape[0], device=raw.device)
+        md = torch.cat([best_d, d], dim=1)
+        mp = torch.cat([best_p, pos[None, :].expand(n_q, -1)], dim=1)
+        vals, sel = torch.sort(md, dim=1, stable=True)
+        best_d, best_p = vals[:, :k], mp.gather(1, sel[:, :k])
+    return best_d, best_p
+
+
+def check_against_oracle(raw, qz, d, p, od, what: str) -> None:
+    """Exact answers: distances match the oracle's and each position is real."""
+    import torch
+
+    expect(torch.isfinite(d).all(), f"{what}: non-finite distances")
+    expect(torch.allclose(d, od, rtol=1e-5, atol=1e-5),
+           f"{what}: distances differ from the oracle, max rel "
+           f"{((d - od).abs() / od.clamp_min(1e-30)).max().item():.3e}")
+    direct = ((raw[p.long()] - qz[:, None, :]) ** 2).sum(dim=-1)
+    expect(torch.allclose(direct, od, rtol=1e-5, atol=1e-5),
+           f"{what}: a returned position is not at an oracle distance")
+
+
+def phase_device() -> tuple:
+    import torch
+
+    name = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    log(f"[device] {name} x{count}; nvidia-smi: {smi}; torch "
+        f"{torch.__version__} cuda {torch.version.cuda}")
+    return name, count, smi
+
+
+def phase_build() -> None:
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    _build.load()
+    log(f"[build] kernels ready in {time.perf_counter() - t0:.2f} s "
+        f"(nvcc {_build.build_seconds:.2f} s)")
+    for line in _build.build_log.splitlines():
+        if "ptxas info" in line or line.startswith("---"):
+            log(f"[build]   {line.strip()}")
+
+
+def phase_quickstart(dev) -> None:
+    import numpy as np
+    import torch
+
+    from repro_torch.core import Tier, build_index, isax
+    from repro_torch.core.search import exact_knn_batch, knn_batch_tiered
+
+    rng = np.random.default_rng(0)
+    raw = rng.standard_normal((4096, 128), dtype=np.float32).cumsum(axis=1)
+    queries = rng.standard_normal((8, 128), dtype=np.float32).cumsum(axis=1)
+    index = build_index(raw, device=dev)
+    plain = build_index(raw, device=dev, impl="ref")
+    expect(torch.equal(index.sax, plain.sax) and torch.equal(
+        index.pos, plain.pos), "quickstart: kernel build != plain build")
+    d, p = exact_knn_batch(index, queries, k=4)
+    d_ref, p_ref = exact_knn_batch(plain, queries, k=4, impl="ref")
+    qz = isax.znorm(torch.tensor(queries, device=dev))
+    od, _ = oracle_knn(index.raw, qz, 4)
+    check_against_oracle(index.raw, qz, d, p, od, "quickstart exact")
+    expect(torch.allclose(d, d_ref, rtol=1e-5, atol=1e-5),
+           "quickstart: kernel engine != plain engine")
+    d_eps, _, achieved = knn_batch_tiered(index, queries, Tier.epsilon(0.1),
+                                          k=4)
+    expect(np.all(achieved <= 0.1 + 1e-6), "quickstart: epsilon bound")
+    expect(torch.all(d_eps.sqrt() <= 1.1 * d.sqrt() * (1 + 1e-5)),
+           "quickstart: epsilon answer worse than (1+eps) x exact")
+    d_b, _, ach_b = knn_batch_tiered(index, queries, Tier.budget(2), k=4)
+    expect(torch.all(d_b >= d * (1 - 1e-5)), "quickstart: budget below exact")
+    log(f"[quickstart] exact kth {d[:, -1].tolist()}")
+    log(f"[quickstart] epsilon achieved {achieved.tolist()}; budget achieved "
+        f"{ach_b.tolist()}")
+
+
+def phase_full(args, dev) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.core import Tier, build_index, isax
+    from repro_torch.core.search import exact_knn_batch, knn_batch_tiered
+    from repro_torch.kernels import ops
+
+    n_series, n, k, rs = 1 << args.log2_n, 256, args.k, 4096
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    raw = random_walks(n_series, n, gen, dev)
+    queries = random_walks(args.queries, n, gen, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    index = build_index(raw, device=dev)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    del raw  # the index holds the z-normed copy
+    t0 = time.perf_counter()
+    d, p, reads, updates, rounds = exact_knn_batch(
+        index, queries, k=k, round_size=rs, leaf_cap=256, stats=True)
+    torch.cuda.synchronize()
+    t_exact = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    d_eps, p_eps, ach_eps = knn_batch_tiered(
+        index, queries, Tier.epsilon(0.1), k=k, round_size=rs)
+    torch.cuda.synchronize()
+    t_eps = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    d_bud, p_bud, ach_bud = knn_batch_tiered(
+        index, queries, Tier.budget(2), k=k, round_size=rs)
+    torch.cuda.synchronize()
+    t_bud = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    log(f"[full] N={n_series} n={n} Q={args.queries} k={k} round={rs} "
+        f"seed={args.seed}")
+    log(f"[full] build_index {t_build:.3f} s; exact_knn_batch {t_exact:.3f} s "
+        f"({rounds} rounds, reads/query mean "
+        f"{reads.double().mean().item():.1f} max {reads.max().item()}, "
+        f"{100 * reads.double().mean().item() / n_series:.3f}% of N); "
+        f"epsilon 0.1 {t_eps:.3f} s; budget 2 {t_bud:.3f} s")
+    log(f"[full] launches {counts}; peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    for name, c in counts.items():
+        expect(c > 0, f"kernel {name} never launched on the main path")
+
+    t0 = time.perf_counter()
+    qz = isax.znorm(queries)
+    od, _ = oracle_knn(index.raw, qz, k)
+    torch.cuda.synchronize()
+    log(f"[full] brute-force oracle {time.perf_counter() - t0:.2f} s")
+    check_against_oracle(index.raw, qz, d, p, od, "full exact")
+    expect(np.all(ach_eps <= 0.1 + 1e-6), "full: epsilon achieved > 0.1")
+    expect(torch.all(d_eps.sqrt() <= 1.1 * d.sqrt() * (1 + 1e-5)),
+           "full: epsilon answer worse than 1.1 x exact")
+    for dd, pp, what in ((d_eps, p_eps, "epsilon"), (d_bud, p_bud, "budget")):
+        direct = ((index.raw[pp.long()] - qz[:, None, :]) ** 2).sum(dim=-1)
+        expect(torch.allclose(direct, dd, rtol=1e-5, atol=1e-5),
+               f"full {what}: a position is not at its reported distance")
+        expect(torch.all(dd >= od * (1 - 1e-5)), f"full {what}: below exact")
+    log(f"[full] exact answers match the oracle; epsilon achieved max "
+        f"{ach_eps.max():.4f}; budget achieved max {ach_bud.max():.4f}")
+    return dict(index=index, queries=queries, qz=qz, counts=counts)
+
+
+def phase_kernels(full: dict) -> list:
+    import torch
+
+    from repro_torch.core import isax
+    from repro_torch.core.search import _smallest, select_len
+    from repro_torch.kernels import ops
+
+    index, qz, counts = full["index"], full["qz"], full["counts"]
+    dev = index.device
+    n_series, n = index.raw.shape
+    w, card = index.segments, index.cardinality
+    n_q = qz.shape[0]
+    rows = []
+
+    def row(name, err, ms, plain_ms, n_bytes, n_ops):
+        b_ms, b_by = bound_ms(n_bytes, n_ops)
+        src, replaces = KERNEL_ROWS[name]
+        log(f"[kernel] {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms); bytes "
+            f"{n_bytes:.4g} ops {n_ops:.4g}; bound {b_ms:.4f} ms by {b_by}; "
+            f"{100 * b_ms / ms:.1f}% of bound; max abs err {err:.3g}; "
+            f"main-path launches {counts[name]}")
+        rows.append(dict(name=name, route="cuda", source=src,
+                         replaces=replaces, launches=counts[name],
+                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=None))
+
+    # paa_isax on the z-normed full-size series, as build_index calls it.
+    bp = isax.gaussian_breakpoints(card, dev)
+    sax_k, paa_k = ops.paa_isax(index.raw, bp, w, normalize=False)
+    sax_p, paa_p = ops.paa_isax(index.raw, bp, w, normalize=False, impl="ref")
+    mism = int((sax_k != sax_p).sum())
+    err = (paa_k - paa_p).abs().max().item()
+    log(f"[kernel] paa_isax: {mism} symbol mismatches of {sax_k.numel()}")
+    expect(mism == 0 and err == 0.0, "paa_isax differs from its plain version")
+    del sax_p, paa_p, paa_k
+    row("paa_isax", err,
+        time_ms(lambda: ops.paa_isax(index.raw, bp, w, normalize=False), 10),
+        time_ms(lambda: ops.paa_isax(index.raw, bp, w, normalize=False,
+                                     impl="ref"), 2),
+        n_series * n * 4 + bp.numel() * 4 + n_series * w * 5,
+        n_series * n + n_series * w * 9)
+
+    # lower_bound_sq_batch: the engine's (Q, N) pass.
+    qps = isax.paa(qz, w)
+    bpp = isax.padded_breakpoints(card, dev)
+    lb_k = ops.lower_bound_sq_batch(qps, index.sax, bpp, n)
+    lb_p = ops.lower_bound_sq_batch(qps, index.sax, bpp, n, impl="ref")
+    err = (lb_k - lb_p).abs().max().item()
+    expect(torch.equal(lb_k, lb_p),
+           f"lower_bound_sq_batch not bitwise equal to plain (max {err})")
+    del lb_p
+    row("lower_bound_sq_batch", err,
+        time_ms(lambda: ops.lower_bound_sq_batch(qps, index.sax, bpp, n), 10),
+        time_ms(lambda: ops.lower_bound_sq_batch(qps, index.sax, bpp, n,
+                                                 impl="ref"), 2),
+        n_q * w * 4 + index.sax.numel() + bpp.numel() * 4 + n_q * n_series * 4,
+        n_q * n_series * (6 * w + 1))
+
+    # The engine's candidate selection between the two kernels: not a
+    # kernel of the port, timed to show where the search time goes.
+    rs = 4096
+    sel = select_len(n_series, rs)
+    log(f"[engine] candidate selection (top {sel} of ({n_q}, {n_series}) "
+        f"int64 keys): {time_ms(lambda: _smallest(lb_k, sel), 3):.3f} ms")
+
+    # euclid_sq: the first RDC round's (Q, 4096) candidates of every query.
+    order, _ = _smallest(lb_k, sel)
+    del lb_k
+    pos = index.pos[order[:, :rs].long()].contiguous()
+    del order
+    d_k = ops.euclid_sq_gather(qz, index.raw, pos)
+    d_p = ops.euclid_sq_gather(qz, index.raw, pos, impl="ref")
+    err = (d_k - d_p).abs().max().item()
+    rel = ((d_k - d_p).abs() / d_p.abs().clamp_min(1e-30)).max().item()
+    expect(torch.allclose(d_k, d_p, rtol=1e-5, atol=1e-5),
+           f"euclid_sq differs from its plain version (max rel {rel:.3e})")
+    log(f"[kernel] euclid_sq: max rel err {rel:.3g}")
+    uniq = torch.unique(pos).numel()
+    row("euclid_sq", err,
+        time_ms(lambda: ops.euclid_sq_gather(qz, index.raw, pos), 50),
+        time_ms(lambda: ops.euclid_sq_gather(qz, index.raw, pos,
+                                             impl="ref"), 5),
+        uniq * n * 4 + qz.numel() * 4 + pos.numel() * 4 + pos.numel() * 4,
+        pos.numel() * 3 * n)
+    return rows
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--log2-n", type=int, default=24,
+                    help="full-size phase holds 2**log2_n series")
+    ap.add_argument("--queries", type=int, default=64)
+    ap.add_argument("--k", type=int, default=8)
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
+    name, count, smi = phase_device()
+    phase_build()
+    phase_quickstart(dev)
+    full = phase_full(args, dev)
+    rows = phase_kernels(full)
+    log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": rows}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": count}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,727 @@
+"""Exact and approximate similarity search over a ParIS index (paper §3.3).
+
+Counterpart of ``repro/core/search.py`` for the single-index main path. All
+algorithms work on *squared* distances and return file-order positions.
+
+  approximate search     -> :func:`approx_search_batch`: the query's root
+                            bucket, then true distances over one
+                            ``leaf_cap`` window of index-sorted entries.
+  LBC pass               -> one (Q, N) lower-bound kernel launch.
+  candidate list         -> the ``select_len`` smallest bounds per query,
+                            ties toward the lower row (as ``lax.top_k``).
+  RDC rounds + BSF       -> :func:`_engine_core`: rounds of ``round_size``
+                            candidates per query, one fused gather-and-
+                            distance kernel launch each, masked by the
+                            current k-th best, merged into the result list.
+  early exit, fallback   -> the loop stops when no query's next bound beats
+                            its k-th best; the exactness fallback scans the
+                            rows the selection cut off, only when needed.
+
+The engine is ONE function, :func:`_engine_core`, behind the
+:class:`EngineView` hooks, and answers the exact path (5-tuple) and the
+service tiers (6-tuple, :class:`Tier`). The reference runs it as a jitted
+``while_loop``; here it is a host loop over device tensors, and each round
+reads one flag back from the device to decide whether to go on. The round
+count is the reference's: ``rounds`` and ``reads`` are outputs the tests
+compare.
+
+Positions inside the engine are int32; ``NO_POS`` (-1) marks an unfilled
+result slot with an INF distance.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import isax
+from repro_torch.core.device import as_f32
+from repro_torch.core.index import ParISIndex
+from repro_torch.kernels import ops
+
+INF = float("inf")
+NO_POS = -1  # sentinel position of an unfilled k-NN result slot
+_BUDGET_UNLIMITED = np.iinfo(np.int32).max  # "no round budget"
+
+
+@dataclasses.dataclass(frozen=True)
+class SearchConfig:
+    """Knobs of the exact-search paths (see field comments)."""
+    round_size: int = 4096  # candidates distance-checked per BSF round
+    leaf_cap: int = 256  # approximate-search window ("leaf" size)
+    sort: bool = True  # sort candidate list by lower bound (ParIS+)
+    impl: str = "auto"  # kernel dispatch (ops.py)
+    select: str = "topk"  # candidate ordering: "topk" partial / "sort" full
+
+
+@dataclasses.dataclass(frozen=True)
+class Tier:
+    """A per-request service tier: how exact must this answer be?
+
+      ``Tier.exact()``        the default; the exact answer.
+      ``Tier.epsilon(eps)``   answer provably within ``(1+eps)`` of the
+                              exact distance (``eps >= 0``).
+      ``Tier.budget(rounds)`` best answer after at most ``rounds``
+                              candidate rounds (``rounds >= 1``), with
+                              the achieved error bound reported.
+
+    Parameters are validated at construction.
+    """
+
+    kind: str = "exact"  # "exact" | "epsilon" | "budget"
+    eps: float = 0.0  # epsilon tier: relative error bound, >= 0
+    budget_rounds: int = 0  # budget tier: max candidate rounds, >= 1
+
+    def __post_init__(self):
+        if self.kind not in ("exact", "epsilon", "budget"):
+            raise ValueError(
+                f"unknown tier kind {self.kind!r}: expected 'exact', "
+                "'epsilon' or 'budget'")
+        if self.kind == "epsilon":
+            eps = float(self.eps)
+            if not eps >= 0.0:  # rejects NaN too
+                raise ValueError(
+                    f"epsilon tier needs eps >= 0, got {self.eps!r} "
+                    "(eps is the relative error bound: the answer is "
+                    "guaranteed within (1+eps) of the exact distance)")
+        if self.kind == "budget":
+            if int(self.budget_rounds) < 1:
+                raise ValueError(
+                    f"budget tier needs budget_rounds >= 1, got "
+                    f"{self.budget_rounds!r} (the engine must run at "
+                    "least one candidate round to produce an answer)")
+
+    @staticmethod
+    def exact() -> "Tier":
+        """The exact tier."""
+        return Tier("exact")
+
+    @staticmethod
+    def epsilon(eps: float) -> "Tier":
+        """An epsilon tier: answers within ``(1+eps)`` of exact."""
+        return Tier("epsilon", eps=float(eps))
+
+    @staticmethod
+    def budget(rounds: int) -> "Tier":
+        """A budget tier: best answer after ``rounds`` candidate rounds."""
+        return Tier("budget", budget_rounds=int(rounds))
+
+
+def as_tier(tier) -> Tier:
+    """Normalize a user-facing tier argument (None, "exact", Tier) to a Tier."""
+    if tier is None:
+        return Tier.exact()
+    if isinstance(tier, Tier):
+        return tier
+    if tier == "exact":
+        return Tier.exact()
+    raise ValueError(
+        f"tier must be None, 'exact' or a Tier instance, got {tier!r}")
+
+
+def tier_arrays(tiers, device="cpu") -> tuple:
+    """Per-row engine parameters for a sequence of :class:`Tier` values.
+
+    Returns ``((Q,) float32 eps_factor_sq, (Q,) int32 budget_rounds)``:
+    epsilon rows carry the squared-space factor ``(1+eps)**2``, budget rows
+    their round budget; the others factor 1.0 and an unlimited budget.
+    """
+    fac = np.ones((len(tiers),), np.float32)
+    bud = np.full((len(tiers),), _BUDGET_UNLIMITED, np.int32)
+    for i, t in enumerate(tiers):
+        if t.kind == "epsilon":
+            fac[i] = (1.0 + t.eps) ** 2
+        elif t.kind == "budget":
+            bud[i] = t.budget_rounds
+    return (torch.tensor(fac, device=device), torch.tensor(bud, device=device))
+
+
+def achieved_epsilon(achieved_factor_sq) -> np.ndarray:
+    """Squared-space achieved factor -> achieved epsilon (numpy, host side).
+
+    ``achieved_eps = sqrt(factor) - 1``, clamped at 0; ``inf`` means a budget
+    so tight the engine can certify nothing.
+    """
+    if isinstance(achieved_factor_sq, torch.Tensor):
+        achieved_factor_sq = achieved_factor_sq.cpu().numpy()
+    f = np.asarray(achieved_factor_sq, np.float64)
+    return np.maximum(np.sqrt(np.maximum(f, 1.0)) - 1.0, 0.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class SearchResult:
+    """One exact 1-NN answer per query plus the paper's instrumentation."""
+    dist_sq: torch.Tensor  # squared distance of the 1-NN
+    position: torch.Tensor  # file-order offset of the 1-NN
+    raw_reads: torch.Tensor  # series whose raw data was fetched (Fig. 20b)
+    bsf_updates: torch.Tensor  # BSF improvements after init (Fig. 20a)
+    rounds: int  # candidate rounds executed
+
+
+def bucket_window_start(bucket_offsets: torch.Tensor, keys: torch.Tensor,
+                        leaf_cap: int, num_series: int) -> torch.Tensor:
+    """Start row of each query's ``leaf_cap`` seed window, in leaf order.
+
+    The window is centered on the query's root bucket (an empty or small
+    bucket degrades to its leaf-order neighbors) and clamped to the array.
+    """
+    keys = keys.to(torch.int64)
+    starts = bucket_offsets[keys]
+    ends = bucket_offsets[keys + 1]
+    pad = torch.clamp_min(leaf_cap - (ends - starts), 0) // 2
+    return torch.clamp(starts - pad, 0, num_series - leaf_cap)
+
+
+def approx_search_batch(index: ParISIndex, queries, leaf_cap: int = 256,
+                        impl: str = "auto") -> tuple:
+    """(Q, n) queries -> ((Q,) bsf, (Q,) int32 pos): the bucket-window seed.
+
+    The window's distances go through the ``euclid_sq`` kernel; ties go to
+    the first row of the window, as ``argmin`` does in the reference.
+    """
+    leaf_cap = min(int(leaf_cap), index.num_series)
+    qs = isax.znorm(as_f32(queries, index.device))
+    qsax = isax.sax_from_paa(isax.paa(qs, index.segments), index.cardinality)
+    keys = isax.root_key(qsax, index.cardinality)
+    s = bucket_window_start(
+        index.bucket_offsets, keys, leaf_cap, index.num_series)
+    rows = s.to(torch.int64)[:, None] + torch.arange(
+        leaf_cap, device=index.device)
+    window = index.pos[rows]  # (Q, leaf_cap) file positions
+    d = ops.euclid_sq_gather(qs, index.raw, window, impl=impl)
+    j = torch.argmin(d, dim=1, keepdim=True)
+    return d.gather(1, j)[:, 0], window.gather(1, j)[:, 0]
+
+
+def approx_search(index: ParISIndex, query, leaf_cap: int = 256,
+                  impl: str = "auto") -> tuple:
+    """Single-query :func:`approx_search_batch`: (n,) -> (bsf_sq, position)."""
+    d, p = approx_search_batch(
+        index, as_f32(query, index.device)[None, :], leaf_cap, impl)
+    return d[0], p[0]
+
+
+def select_len(n: int, round_size: int) -> int:
+    """Per-query candidate-list length of the partial selection."""
+    return min(n, max(n // 16, 4 * round_size))
+
+
+def _smallest(lb: torch.Tensor, k: int) -> tuple:
+    """The k smallest bounds per row, ascending, ties toward the lower column.
+
+    ``lax.top_k`` in the reference breaks ties toward the lower index;
+    ``torch.topk`` promises no tie order. A non-negative float's bits are
+    monotone as an integer, so the int64 key ``(bits << 32) | column`` is
+    unique per row and orders exactly as (bound, column). Returns
+    ((Q, k) int32 columns, (Q, k) float32 bounds).
+    """
+    key = lb.contiguous().view(torch.int32).to(torch.int64)
+    key <<= 32
+    key |= torch.arange(lb.shape[1], dtype=torch.int64, device=lb.device)
+    vals = torch.topk(key, k, dim=1, largest=False, sorted=True).values
+    del key
+    cols = (vals & 0xFFFFFFFF).to(torch.int32)
+    bounds = (vals >> 32).to(torch.int32).view(torch.float32)
+    return cols, bounds
+
+
+def dedup_mask(cand_pos: torch.Tensor, top_d: torch.Tensor,
+               top_p: torch.Tensor) -> torch.Tensor:
+    """(Q, R) mask of candidates already present in the (Q, k) result list.
+
+    A candidate can only be a duplicate if its position sits in ``top_p``
+    with a finite distance; unfilled slots (INF, ``NO_POS``) match nothing.
+    """
+    return (
+        (cand_pos[:, :, None] == top_p[:, None, :])
+        & (top_d[:, None, :] < INF)
+    ).any(dim=2)
+
+
+def merge_top_lists(dists: list, positions: list, k: int) -> tuple:
+    """Merge ownership-disjoint (..., k_i) top lists into the global top-k.
+
+    Host-side (numpy), as in the reference: lists are concatenated along
+    the last axis in ascending file-offset order and reduced with a stable
+    ascending argsort, so ties resolve toward the lower file position and
+    sentinel (INF, ``NO_POS``) slots sink.
+    """
+    def host(x):
+        return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+    d = np.concatenate([host(x) for x in dists], axis=-1)
+    p = np.concatenate([host(x) for x in positions], axis=-1)
+    order = np.argsort(d, axis=-1, kind="stable")[..., :k]
+    return (
+        np.take_along_axis(d, order, axis=-1),
+        np.take_along_axis(p, order, axis=-1),
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineView:
+    """The storage hooks that specialize the ONE RDC engine core.
+
+      n_rows        candidate rows the LBC pass covers
+      num_series    real series behind those rows, for k validation
+      segments      PAA word width of the stored SAX rows
+      lower_bounds  ((Q, w) query PAA, impl) -> (Q, n_rows) squared lower
+                    bounds; padding rows must come back +inf
+      positions     candidate row ids -> int32 file positions
+      distances     ((Q, n) z-normed queries, positions (Q, R) or shared
+                    (R,), impl) -> (Q, R) squared distances to the raw rows
+                    at those positions; the gather is clipped (NO_POS reads
+                    row 0 harmlessly: its +inf bound keeps it out of every
+                    mask). The reference splits this into ``gather_raw``
+                    and ``euclid_sq``; the port's kernel fuses the two.
+      seed          ((Q, n) queries, impl) -> ((Q,) bsf, (Q,) pos, leaf
+                    reads): the approximate-search BSF seed
+    """
+
+    n_rows: int
+    num_series: int
+    segments: int
+    lower_bounds: Callable
+    positions: Callable
+    distances: Callable
+    seed: Callable
+
+
+def _index_view(index: ParISIndex, *, leaf_cap: int) -> EngineView:
+    """Single-index hooks: identity positions + approx-seeded BSF."""
+    bpp = isax.padded_breakpoints(index.cardinality, index.device)
+    leaf = min(int(leaf_cap), index.num_series)
+
+    def lower_bounds(qps, impl):
+        return ops.lower_bound_sq_batch(
+            qps, index.sax, bpp, index.series_length, impl=impl)
+
+    def seed(queries, impl):
+        bsf0, pos0 = approx_search_batch(index, queries, leaf, impl)
+        return bsf0, pos0, leaf
+
+    return EngineView(
+        n_rows=index.num_series,
+        num_series=index.num_series,
+        segments=index.segments,
+        lower_bounds=lower_bounds,
+        positions=lambda idx: index.pos[idx.to(torch.int64)],
+        distances=lambda qs, pos, impl: ops.euclid_sq_gather(
+            qs, index.raw, pos, impl=impl),
+        seed=seed,
+    )
+
+
+def _round_cols(x: torch.Tensor, r: int, rs: int, fill) -> torch.Tensor:
+    """Columns [r*rs, (r+1)*rs) of a (Q, L) tensor, padded with ``fill``."""
+    piece = x[:, r * rs:(r + 1) * rs]
+    short = rs - piece.shape[1]
+    if short > 0:
+        piece = torch.cat([piece, piece.new_full((x.shape[0], short), fill)],
+                          dim=1)
+    return piece
+
+
+def _round_rows(n_rows: int, r: int, rs: int, device) -> torch.Tensor:
+    """Row ids [r*rs, (r+1)*rs) of the row order, padded with row 0."""
+    idx = torch.arange(r * rs, (r + 1) * rs, dtype=torch.int64, device=device)
+    return torch.where(idx < n_rows, idx, 0)
+
+
+def _engine_core(
+    view: EngineView,
+    queries: torch.Tensor,
+    *,
+    k: int,
+    round_size: int,
+    sort: bool,
+    select: str,
+    impl: str,
+    eps_factor_sq: Optional[torch.Tensor] = None,
+    budget_rounds: Optional[torch.Tensor] = None,
+) -> tuple:
+    """THE batched RDC loop — the single engine core behind every search.
+
+    (Q, n) queries -> ((Q, k) dists, (Q, k) int32 positions, (Q,) reads,
+    (Q,) bsf updates, rounds). One host loop drives all Q queries: per-query
+    BSF vector, per-query candidate order, per-query round masks, and a
+    joint early exit once no query's next lower bound beats its k-th best.
+
+    ``select="topk"`` keeps only the ``select_len`` smallest bounds per
+    query; exactness is kept by a fallback scan over the full row order that
+    runs only for queries whose last selected bound still beats their k-th
+    best when the list is used up. For k > 1 every merge masks candidates
+    already in the result list (:func:`dedup_mask`). ``sort=False`` is the
+    ADS+-style serial scan (row order, no early exit).
+
+    Passing BOTH ``eps_factor_sq`` and ``budget_rounds`` ((Q,) tensors,
+    :func:`tier_arrays`) runs the TIERED variant, which returns a sixth
+    output, the per-query achieved squared error factor; tiers require
+    ``sort=True``. Without them the engine is the exact path.
+    """
+    if not 1 <= k <= view.num_series:
+        raise ValueError(f"k={k} outside [1, {view.num_series}]")
+    tiered = eps_factor_sq is not None
+    if tiered and budget_rounds is None:
+        raise ValueError("tiered engine needs both eps_factor_sq and "
+                         "budget_rounds (see tier_arrays)")
+    if tiered and not sort:
+        raise ValueError("service tiers require the sorted-candidate "
+                         "engine (sort=True)")
+    dev = queries.device
+    n_rows = view.n_rows
+    n_q = queries.shape[0]
+    rs = round_size
+    qs = isax.znorm(queries)
+    qps = isax.paa(qs, view.segments)
+
+    # Result lists: slot 0 holds the approximate seed, the rest (INF, NO_POS).
+    bsf0, pos0, leaf = view.seed(queries, impl)
+    top_d = torch.full((n_q, k), INF, device=dev)
+    top_p = torch.full((n_q, k), NO_POS, dtype=torch.int32, device=dev)
+    top_d[:, 0] = bsf0
+    top_p[:, 0] = pos0.to(torch.int32)
+    reads = torch.full((n_q,), leaf, dtype=torch.int32, device=dev)
+    updates = torch.zeros((n_q,), dtype=torch.int32, device=dev)
+    skip_lb = torch.full((n_q,), INF, device=dev) if tiered else None
+
+    # --- LBC phase: ONE fused (Q, n_rows) pass over the SAX rows. ---
+    lb = view.lower_bounds(qps, impl)
+
+    # --- Per-query candidate orders, ties toward the lower row. ---
+    if sort:
+        sel_len = select_len(n_rows, rs) if select == "topk" else n_rows
+        order, lb_sel = _smallest(lb, sel_len)
+    else:
+        sel_len = n_rows
+        lb_sel = lb
+    n_rounds = -(-sel_len // rs)
+
+    def merge(top_d, top_p, cand_pos, d):
+        if k == 1:  # 1-NN: argmin + strict improvement (ties keep incumbent)
+            j = torch.argmin(d, dim=1, keepdim=True)
+            dj = d.gather(1, j)
+            better = dj < top_d
+            return (torch.where(better, dj, top_d),
+                    torch.where(better, cand_pos.gather(1, j), top_p))
+        # k-safety: a re-distanced candidate must not enter the list twice.
+        d = torch.where(dedup_mask(cand_pos, top_d, top_p), INF, d)
+        md = torch.cat([top_d, d], dim=1)
+        mp = torch.cat([top_p, cand_pos], dim=1)
+        # Stable sort: ties keep the lower column, so the incumbent wins.
+        vals, sel = torch.sort(md, dim=1, stable=True)
+        return vals[:, :k], mp.gather(1, sel[:, :k])
+
+    def tier_skip(skip_lb, would, mask, lbs):
+        # Candidates the exact engine would have checked but the tier
+        # skipped feed the achieved-bound tracker.
+        return torch.minimum(
+            skip_lb, torch.where(would & ~mask, lbs, INF).amin(dim=1))
+
+    def apply_round(top_d, top_p, reads, updates, cand_pos, d, mask):
+        d = torch.where(mask, d, INF)
+        improved = d.amin(dim=1) < top_d[:, -1]
+        top_d, top_p = merge(top_d, top_p, cand_pos, d)
+        return (top_d, top_p, reads + mask.sum(dim=1, dtype=torch.int32),
+                updates + improved.to(torch.int32))
+
+    r = 0
+    while r < n_rounds:
+        kth = top_d[:, -1]
+        if sort:  # joint early exit: every query's next bound >= its BSF
+            head = lb_sel[:, r * rs]
+            if tiered:
+                go = ((r < budget_rounds) & (head * eps_factor_sq < kth)).any()
+            else:
+                go = (head < kth).any()
+            if not bool(go):
+                break
+        lbs = _round_cols(lb_sel, r, rs, INF)
+        if sort:
+            cand_pos = view.positions(_round_cols(order, r, rs, 0))  # (Q, rs)
+            d = view.distances(qs, cand_pos, impl)  # the "disk reads"
+        else:
+            pos1 = view.positions(_round_rows(n_rows, r, rs, dev))
+            d = view.distances(qs, pos1, impl)
+            cand_pos = pos1[None, :].expand(n_q, rs)
+        if tiered:
+            would = lbs < kth[:, None]
+            mask = ((lbs * eps_factor_sq[:, None] < kth[:, None])
+                    & (r < budget_rounds)[:, None])
+            skip_lb = tier_skip(skip_lb, would, mask, lbs)
+        else:
+            mask = lbs < kth[:, None]
+        top_d, top_p, reads, updates = apply_round(
+            top_d, top_p, reads, updates, cand_pos, d, mask)
+        r += 1
+    r_main = r
+
+    fb_r2 = None
+    if sort and select == "topk" and sel_len < n_rows:
+        # Exactness fallback: a query whose last *selected* bound still beats
+        # its BSF might have unselected qualifying candidates — scan the
+        # full row order with per-query (bound, need) masks, re-evaluated
+        # every round. In the common case no query needs it and the loop
+        # stops before its first round.
+        kth_bound = lb_sel[:, -1]
+        all_rounds = -(-n_rows // rs)
+        r2 = 0
+        while r2 < all_rounds:
+            kth = top_d[:, -1]
+            if tiered:
+                need = ((kth_bound * eps_factor_sq < kth)
+                        & ((r_main + r2) < budget_rounds))
+            else:
+                need = kth_bound < kth
+            if not bool(need.any()):
+                break
+            lbs = _round_cols(lb, r2, rs, INF)
+            pos1 = view.positions(_round_rows(n_rows, r2, rs, dev))
+            d = view.distances(qs, pos1, impl)
+            # lbs >= kth_bound skips candidates the main loop already had
+            # (everything strictly below the K-th bound was selected); ties
+            # at the bound re-distance harmlessly.
+            if tiered:
+                gate = lbs * eps_factor_sq[:, None] < kth[:, None]
+            else:
+                gate = lbs < kth[:, None]
+            mask = gate & (lbs >= kth_bound[:, None]) & need[:, None]
+            if tiered:
+                would = (lbs < kth[:, None]) & (lbs >= kth_bound[:, None])
+                skip_lb = tier_skip(skip_lb, would, mask, lbs)
+            top_d, top_p, reads, updates = apply_round(
+                top_d, top_p, reads, updates,
+                pos1[None, :].expand(n_q, rs), d, mask)
+            r2 += 1
+        fb_r2 = r2
+        r = r + r2
+
+    if tiered:
+        # Achieved squared error factor: the BSF over the smallest lower
+        # bound never distance-checked — (a) tier-skipped candidates
+        # (skip_lb), (b) the unprocessed tail of the selected list (its
+        # head bound, the frontier), (c) under select="topk", unselected
+        # rows the fallback never reached (charged only when it did not
+        # scan the whole row order). If that minimum still meets the BSF
+        # the answer is certified exact (factor 1.0).
+        kth_final = top_d[:, -1]
+        if r_main < n_rounds:
+            denom = torch.minimum(skip_lb, lb_sel[:, r_main * rs])
+        else:
+            denom = skip_lb
+        if fb_r2 is not None and fb_r2 < all_rounds:
+            denom = torch.minimum(denom, kth_bound)
+        one = torch.ones((), device=dev)
+        achieved_sq = torch.where(denom >= kth_final, one, kth_final / denom)
+        return top_d, top_p, reads, updates, r, achieved_sq
+
+    return top_d, top_p, reads, updates, r
+
+
+def _queries(index: ParISIndex, queries) -> torch.Tensor:
+    qs = as_f32(queries, index.device)
+    if qs.dim() != 2 or qs.shape[1] != index.series_length:
+        raise ValueError(
+            f"queries must be (Q, {index.series_length}), got {tuple(qs.shape)}")
+    return qs
+
+
+def _pad_missing(top_d, top_p, k: int):
+    # Tiny index (k > num_series): sentinel-pad the missing neighbors.
+    short = k - top_d.shape[1]
+    if short <= 0:
+        return top_d, top_p
+    n_q = top_d.shape[0]
+    return (torch.cat([top_d, top_d.new_full((n_q, short), INF)], dim=1),
+            torch.cat([top_p, top_p.new_full((n_q, short), NO_POS)], dim=1))
+
+
+def _run_engine(index: ParISIndex, qs: torch.Tensor, *, k: int,
+                round_size: int, leaf_cap: int, sort: bool, select: str,
+                impl: str, eps_factor_sq=None, budget_rounds=None) -> tuple:
+    return _engine_core(
+        _index_view(index, leaf_cap=leaf_cap), qs, k=k,
+        round_size=round_size, sort=sort, select=select, impl=impl,
+        eps_factor_sq=eps_factor_sq, budget_rounds=budget_rounds)
+
+
+def knn_batch_tiered(
+    index: ParISIndex,
+    queries,
+    tier,
+    k: int = 1,
+    round_size: int = 4096,
+    impl: str = "auto",
+    select: str = "topk",
+    leaf_cap: int = 256,
+) -> tuple:
+    """Tiered batched k-NN over one index (see :class:`Tier`).
+
+    (Q, n) queries -> ((Q, k) dists ascending, (Q, k) positions,
+    (Q,) numpy achieved epsilon). ``tier`` is one value for the whole batch
+    or a sequence of per-query :class:`Tier` values. Runs on the index's
+    device.
+    """
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    qs = _queries(index, queries)
+    if isinstance(tier, (Tier, str)) or tier is None:
+        tiers = [as_tier(tier)] * qs.shape[0]
+    else:
+        tiers = [as_tier(t) for t in tier]
+        if len(tiers) != qs.shape[0]:
+            raise ValueError(
+                f"got {len(tiers)} tiers for {qs.shape[0]} queries")
+    eps_f, budget = tier_arrays(tiers, qs.device)
+    top_d, top_p, _, _, _, ach_sq = _run_engine(
+        index, qs, k=min(k, index.num_series), round_size=round_size,
+        leaf_cap=leaf_cap, sort=True, select=select, impl=impl,
+        eps_factor_sq=eps_f, budget_rounds=budget)
+    top_d, top_p = _pad_missing(top_d, top_p, k)
+    return top_d, top_p, achieved_epsilon(ach_sq)
+
+
+def pow2_bucket(n: int, lo: int = 1) -> int:
+    """Smallest power of two >= max(n, lo)."""
+    return 1 << (max(n, lo) - 1).bit_length()
+
+
+def make_batch_engine(
+    index: ParISIndex,
+    *,
+    k: Optional[int] = None,
+    round_size: int = 4096,
+    leaf_cap: int = 256,
+    sort: bool = True,
+    select: str = "topk",
+    impl: str = "auto",
+    min_bucket: int = 1,
+):
+    """A reusable batch engine over one index with power-of-two Q buckets.
+
+    Any (Q, n) call is padded up to ``pow2_bucket(Q, min_bucket)`` rows
+    (pad rows repeat row 0 and are discarded), so streaming callers see
+    the shapes the reference's jitted engines see.
+
+    ``k=None``: exact 1-NN, returns a ``SearchResult`` of (Q,) tensors.
+    ``k >= 1``: exact k-NN, returns ((Q, k) dists ascending, (Q, k) pos).
+    ``engine(queries, tiers=[...])`` (k-NN mode only) answers each row at
+    its own tier and returns a third array, the achieved epsilon; pad rows
+    get factor 1 and a zero round budget, so they never extend the loop.
+    ``engine.bucket(qn)`` is the padded batch size of a Q-query call.
+    """
+    if k is not None and k < 1:
+        raise ValueError(f"k must be None (1-NN mode) or >= 1, got {k}")
+    k_eff = 1 if k is None else min(k, index.num_series)
+
+    def bucket(qn: int) -> int:
+        return pow2_bucket(qn, min_bucket)
+
+    def engine(queries, tiers=None):
+        qs = _queries(index, queries)
+        qn = qs.shape[0]
+        if tiers is not None:
+            tiers = [as_tier(t) for t in tiers]
+            if len(tiers) != qn:
+                raise ValueError(
+                    f"got {len(tiers)} tiers for {qn} queries")
+            if all(t.kind == "exact" for t in tiers):
+                tiers = None  # pure-exact batch: the exact path
+            elif k is None:
+                raise ValueError(
+                    "service tiers need k-NN mode (k >= 1); the 1-NN "
+                    "SearchResult mode answers tier='exact' only")
+        b = bucket(qn)
+        if b > qn:  # pad rows repeat a real query; sliced off below
+            qs = torch.cat([qs, qs[:1].expand(b - qn, -1)])
+        common = dict(k=k_eff, round_size=round_size, leaf_cap=leaf_cap,
+                      sort=sort, select=select, impl=impl)
+        if tiers is not None:
+            eps_f, budget = tier_arrays(tiers, qs.device)
+            if b > qn:  # pad rows: factor 1, zero budget — inert rows
+                eps_f = torch.cat([eps_f, eps_f.new_ones(b - qn)])
+                budget = torch.cat([budget, budget.new_zeros(b - qn)])
+            top_d, top_p, _, _, _, ach_sq = _run_engine(
+                index, qs, eps_factor_sq=eps_f, budget_rounds=budget,
+                **common)
+            top_d, top_p = _pad_missing(top_d[:qn], top_p[:qn], k)
+            return top_d, top_p, achieved_epsilon(ach_sq[:qn])
+        top_d, top_p, reads, updates, rounds = _run_engine(index, qs, **common)
+        if k is None:
+            return SearchResult(
+                top_d[:qn, 0], top_p[:qn, 0], reads[:qn], updates[:qn],
+                rounds)
+        return _pad_missing(top_d[:qn], top_p[:qn], k)
+
+    engine.bucket = bucket
+    engine.index = index
+    engine.k = k
+    return engine
+
+
+def exact_search_batch(
+    index: ParISIndex, queries, cfg: SearchConfig = SearchConfig()
+) -> SearchResult:
+    """Batched ParIS+ exact 1-NN: (Q, n) queries -> SearchResult of (Q,)."""
+    top_d, top_p, reads, updates, rounds = _run_engine(
+        index, _queries(index, queries), k=1, round_size=cfg.round_size,
+        leaf_cap=cfg.leaf_cap, sort=cfg.sort, select=cfg.select,
+        impl=cfg.impl)
+    return SearchResult(top_d[:, 0], top_p[:, 0], reads, updates, rounds)
+
+
+def exact_knn_batch(
+    index: ParISIndex,
+    queries,
+    k: int = 1,
+    round_size: int = 4096,
+    impl: str = "auto",
+    select: str = "topk",
+    sort: bool = True,
+    leaf_cap: int = 256,
+    stats: bool = False,
+) -> tuple:
+    """Batched exact k-NN: (Q, n) -> ((Q, k) dists ascending, (Q, k) pos).
+
+    Runs on the index's device. ``k < 1`` raises; ``k > num_series`` is
+    answered with the real neighbors and (INF, ``NO_POS``) in the remaining
+    slots. ``stats=True`` appends the per-query (raw_reads, bsf_updates)
+    and the round count.
+    """
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    top_d, top_p, reads, updates, rounds = _run_engine(
+        index, _queries(index, queries), k=min(k, index.num_series),
+        round_size=round_size, leaf_cap=leaf_cap, sort=sort, select=select,
+        impl=impl)
+    top_d, top_p = _pad_missing(top_d, top_p, k)
+    if stats:
+        return top_d, top_p, reads, updates, rounds
+    return top_d, top_p
+
+
+def exact_search(
+    index: ParISIndex, query, cfg: SearchConfig = SearchConfig()
+) -> SearchResult:
+    """ParIS+ exact 1-NN of one (n,) query (``cfg.sort=False``: serial scan)."""
+    res = exact_search_batch(index, as_f32(query, index.device)[None, :], cfg)
+    return SearchResult(res.dist_sq[0], res.position[0], res.raw_reads[0],
+                        res.bsf_updates[0], res.rounds)
+
+
+def exact_knn(
+    index: ParISIndex,
+    query,
+    k: int = 1,
+    round_size: int = 4096,
+    impl: str = "auto",
+    select: str = "topk",
+) -> tuple:
+    """Exact k-NN of one (n,) query: ((k,) dists ascending, (k,) positions)."""
+    top_d, top_p = exact_knn_batch(
+        index, as_f32(query, index.device)[None, :], k=k,
+        round_size=round_size, impl=impl, select=select)
+    return top_d[0], top_p[0]

@@ -1,0 +1,172 @@
+"""Build the CUDA kernels with nvcc and load them through ctypes.
+
+Each ``csrc/*.cu`` file exports a plain C interface (no PyTorch headers), so
+``nvcc`` compiles it in seconds. At first use every source is compiled to
+an object file by its own ``nvcc`` process, all started together, and the
+objects are linked into one shared library that ``ctypes`` loads. The
+library lands in ``kernels/build/`` (listed in ``.gitignore``) under a name
+that hashes the sources and flags, so an edit rebuilds and an unchanged
+tree reuses the last build.
+
+Nothing here runs at import: the CPU tests import every module, and
+``nvcc`` is only reached when a kernel is launched on a CUDA tensor (or
+:func:`load` is called).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+import time
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parent / "build"
+SOURCES = ("paa_isax.cu", "lower_bound.cu", "euclidean.cu")
+ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+NVCC_FLAGS = (ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_lib = None
+# What the last build printed (ptxas register/shared-memory lines) and how
+# long it took; chip_smoke.py reports both.
+build_log = ""
+build_seconds = 0.0
+
+_VP = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
+
+# C signature of every exported entry; each returns cudaGetLastError().
+_SIGNATURES = {
+    # series, breakpoints, sax, paa, B, n, w, n_bp, normalize, stream
+    "paa_isax_launch": (_VP, _VP, _VP, _VP, _L, _I, _I, _I, _I, _VP),
+    # qpaa, sax, bp_padded, out, Q, N, w, n_bp_padded, scale, stream
+    "lower_bound_sq_batch_launch": (_VP, _VP, _VP, _VP, _I, _L, _I, _I, _F,
+                                    _VP),
+    # queries, raw, positions, out, Q, R, N, n, pos_row_stride, stream
+    "euclid_sq_gather_launch": (_VP, _VP, _VP, _VP, _I, _I, _L, _I, _L, _VP),
+}
+
+
+def nvcc_path() -> str:
+    """Path of ``nvcc``: ``$CUDA_HOME/bin``, ``/usr/local/cuda/bin``, or PATH."""
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root:
+            cand = pathlib.Path(root) / "bin" / "nvcc"
+            if cand.is_file():
+                return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (set CUDA_HOME or put nvcc on PATH): the CUDA "
+            "kernels are built from source at first use")
+    return found
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _compile(nvcc: str, tag: str) -> pathlib.Path:
+    global build_log, build_seconds
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = []
+    objs = []
+    for name in SOURCES:  # one nvcc per source, all running at once
+        obj = BUILD_DIR / f"{pathlib.Path(name).stem}-{tag}.{os.getpid()}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)]
+        procs.append((name, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+        objs.append(obj)
+    logs = []
+    failed = []
+    for name, p in procs:
+        out, _ = p.communicate()
+        logs.append(f"--- {name}\n{out}")
+        if p.returncode:
+            failed.append(name)
+    if failed:
+        raise RuntimeError(
+            f"nvcc failed on {failed}:\n" + "\n".join(logs))
+    so = BUILD_DIR / f"libparis_kernels-{tag}.so"
+    tmp = BUILD_DIR / f"libparis_kernels-{tag}.{os.getpid()}.tmp.so"
+    link = subprocess.run(
+        [nvcc, ARCH, "-shared", *map(str, objs), "-o", str(tmp)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if link.returncode:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+    os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
+    for obj in objs:
+        obj.unlink()
+    build_log = "\n".join(logs)
+    build_seconds = time.perf_counter() - t0
+    return so
+
+
+def load() -> ctypes.CDLL:
+    """Build (once per source state) and load the kernel library."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        tag = _digest()
+        so = BUILD_DIR / f"libparis_kernels-{tag}.so"
+        if not so.is_file():
+            so = _compile(nvcc_path(), tag)
+        lib = ctypes.CDLL(str(so))
+        for fn_name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        lib.paris_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.paris_cuda_error_string.restype = ctypes.c_char_p
+        _lib = lib
+        return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry returned a CUDA error (a refused launch never runs)."""
+    if err:
+        text = _lib.paris_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({text}) at launch")
+
+
+def require(t, name: str, dtype, ndim: int) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` and rank."""
+    import torch
+
+    if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: expected {ndim} dims, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def same_device(*tensors) -> None:
+    """Raise unless every tensor lies on the same card."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
+
+
+def stream_of(t) -> int:
+    """The raw handle of PyTorch's current stream on ``t``'s device."""
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream

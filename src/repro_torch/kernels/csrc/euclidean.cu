@@ -1,0 +1,129 @@
+// euclid_sq_gather: (Q, n) f32 queries x raw (N, n) f32 rows at (Q, R) int32
+// positions -> (Q, R) f32 squared Euclidean distances, by the direct
+// difference sum (not the |a|^2 - 2ab + |b|^2 matrix form).
+//
+// Replaces the TPU kernel repro/kernels/euclidean.py::_euclid_kernel
+// (euclid_sq_pallas, pallas_call at :40). On the TPU the RDC rounds gather
+// the candidate rows with an XLA take and then run the kernel once per query
+// under vmap; here the gather is fused in, so the (Q, R, n) gathered copy
+// never exists. Positions shared by every query (the ADS+ serial scan and
+// the exactness fallback) come with pos_row_stride = 0. A position is
+// clamped to [0, N - 1], as the reference's take(..., mode="clip"): the
+// NO_POS = -1 sentinel reads row 0.
+//
+// Bound on the H100: memory. One RDC round at Q = 64, R = 4096, n = 256
+// reads 268 MB of scattered rows (80 us at 3.35 TB/s) for 3n fp32 operations
+// per row. Design: a block serves one query, whose n values are staged in
+// shared memory; each warp takes kRowsPerWarp candidate rows and each lane
+// reads 16-byte pieces of them, so one row is read as whole 512-byte
+// segments, and the loads of all kRowsPerWarp rows are in flight together.
+// Lanes sum their pieces, then a butterfly of warp shuffles sums the lanes.
+// The summation order differs from the plain version's, so the two agree to
+// rounding (relative error near 1e-7), not bit for bit.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kRowsPerWarp = 4;
+
+template <bool kVec4>
+__global__ void __launch_bounds__(kThreads)
+euclid_gather_kernel(const float* __restrict__ queries,
+                     const float* __restrict__ raw,
+                     const int32_t* __restrict__ positions,
+                     float* __restrict__ out, int R, long long N, int n,
+                     long long pos_row_stride) {
+  extern __shared__ float s_q[];
+  const int q = blockIdx.y;
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    s_q[i] = queries[(long long)q * n + i];
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int r0 = (blockIdx.x * kWarps + warp) * kRowsPerWarp;
+  if (r0 >= R) return;  // warp-uniform: the shuffles below stay full-warp
+
+  const float* rows[kRowsPerWarp];
+  float acc[kRowsPerWarp];
+#pragma unroll
+  for (int k = 0; k < kRowsPerWarp; ++k) {
+    const int r = min(r0 + k, R - 1);  // a tail warp recomputes row R - 1
+    long long p = positions[(long long)q * pos_row_stride + r];
+    p = p < 0 ? 0 : (p >= N ? N - 1 : p);
+    rows[k] = raw + p * n;
+    acc[k] = 0.f;
+  }
+
+  if (kVec4) {
+    const float4* q4 = reinterpret_cast<const float4*>(s_q);
+    for (int c = lane; c < n / 4; c += 32) {
+      const float4 qv = q4[c];
+      float4 x[kRowsPerWarp];
+#pragma unroll
+      for (int k = 0; k < kRowsPerWarp; ++k)
+        x[k] = __ldg(reinterpret_cast<const float4*>(rows[k]) + c);
+#pragma unroll
+      for (int k = 0; k < kRowsPerWarp; ++k) {
+        const float dx = x[k].x - qv.x, dy = x[k].y - qv.y;
+        const float dz = x[k].z - qv.z, dw = x[k].w - qv.w;
+        acc[k] += dx * dx + dy * dy + dz * dz + dw * dw;
+      }
+    }
+  } else {
+    for (int c = lane; c < n; c += 32) {
+      const float qv = s_q[c];
+#pragma unroll
+      for (int k = 0; k < kRowsPerWarp; ++k) {
+        const float d = __ldg(rows[k] + c) - qv;
+        acc[k] += d * d;
+      }
+    }
+  }
+
+#pragma unroll
+  for (int k = 0; k < kRowsPerWarp; ++k) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      acc[k] += __shfl_xor_sync(0xffffffffu, acc[k], off);
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < kRowsPerWarp; ++k)
+      if (r0 + k < R) out[(long long)q * R + r0 + k] = acc[k];
+  }
+}
+
+}  // namespace
+
+extern "C" int euclid_sq_gather_launch(const void* queries, const void* raw,
+                                       const void* positions, void* out,
+                                       int Q, int R, long long N, int n,
+                                       long long pos_row_stride,
+                                       void* stream) {
+  if (Q == 0 || R == 0) return (int)cudaGetLastError();
+  if (N <= 0 || n <= 0 || Q > 65535 || (size_t)n * sizeof(float) > 48 * 1024)
+    return (int)cudaErrorInvalidValue;
+  const int rows_per_block = kWarps * kRowsPerWarp;
+  dim3 grid((R + rows_per_block - 1) / rows_per_block, Q);
+  const size_t smem = (size_t)n * sizeof(float);
+  const bool vec4 = n % 4 == 0 && ((uintptr_t)raw & 15) == 0 &&
+                    ((uintptr_t)queries & 15) == 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (vec4)
+    euclid_gather_kernel<true><<<grid, kThreads, smem, s>>>(
+        (const float*)queries, (const float*)raw, (const int32_t*)positions,
+        (float*)out, R, N, n, pos_row_stride);
+  else
+    euclid_gather_kernel<false><<<grid, kThreads, smem, s>>>(
+        (const float*)queries, (const float*)raw, (const int32_t*)positions,
+        (float*)out, R, N, n, pos_row_stride);
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* paris_cuda_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}

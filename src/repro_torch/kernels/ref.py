@@ -1,0 +1,104 @@
+"""Plain PyTorch versions of every hand-written kernel in this package.
+
+Counterpart of ``repro/kernels/ref.py``. Each function is the semantic
+ground truth its CUDA kernel is held against (on the card by
+``chip_smoke.py`` and the card-marked tests) and the path ``ops.py`` takes
+for a tensor that lies on the CPU. Each repeats its kernel's arithmetic in
+the same order where the kernel promises bitwise results (``paa_isax``,
+``lower_bound_sq_batch``). Every sum over the last axis uses
+``isax.sum_last``, the reference's order, so on the CPU these functions
+match the JAX package's plain versions bit for bit; the ``euclid_sq``
+kernel sums in another order and is held to them with a tolerance.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import isax
+
+
+def lower_bound_sq(
+    query_paa: torch.Tensor,
+    sax: torch.Tensor,
+    bp_padded: torch.Tensor,
+    series_length: int,
+) -> torch.Tensor:
+    """(w,) query PAA x (N, w) uint8 sax -> (N,) squared lower bounds."""
+    w = sax.shape[-1]
+    idx = sax.to(torch.int64)
+    bl = bp_padded[idx]
+    bu = bp_padded[idx + 1]
+    q = query_paa[None, :].to(torch.float32)
+    zero = torch.zeros((), dtype=torch.float32, device=sax.device)
+    d = torch.where(q > bu, q - bu, torch.where(q < bl, bl - q, zero))
+    return (series_length / w) * isax.sum_last(d * d)
+
+
+def lower_bound_sq_batch(
+    query_paa: torch.Tensor,
+    sax: torch.Tensor,
+    bp_padded: torch.Tensor,
+    series_length: int,
+) -> torch.Tensor:
+    """(Q, w) query PAA batch x (N, w) uint8 sax -> (Q, N) lower bounds.
+
+    Accumulates segment by segment over (Q, N) planes, as the reference
+    does: ``acc + d * d`` rounds the product and the sum separately, which
+    is the order the kernel keeps (``__fmul_rn``/``__fadd_rn``).
+    """
+    n_q, w = query_paa.shape
+    idx = sax.to(torch.int64)
+    bl = bp_padded[idx]  # (N, w)
+    bu = bp_padded[idx + 1]
+    q = query_paa.to(torch.float32)
+    acc = torch.zeros((n_q, sax.shape[0]), dtype=torch.float32,
+                      device=sax.device)
+    for j in range(w):
+        qj = q[:, j][:, None]  # (Q, 1)
+        d = torch.clamp_min(
+            torch.maximum(qj - bu[:, j][None, :], bl[:, j][None, :] - qj), 0.0)
+        acc = acc + d * d
+    return (series_length / w) * acc
+
+
+def paa_isax(
+    series: torch.Tensor,
+    segments: int,
+    breakpoints: torch.Tensor,
+    normalize: bool = True,
+) -> tuple:
+    """(B, n) raw series -> ((B, w) uint8 symbols, (B, w) f32 PAA).
+
+    ``normalize=True`` z-normalizes as the TPU kernel does
+    (``(x - mean) * rsqrt(var + 1e-16)``), which is not ``isax.znorm``;
+    ``build_index`` z-norms with ``isax.znorm`` and passes ``False``.
+    """
+    x = series.to(torch.float32)
+    if normalize:
+        n = x.shape[-1]
+        x = x - (isax.sum_last(x) / n)[:, None]
+        x = x * torch.rsqrt(isax.sum_last(x * x) / n + 1e-16)[:, None]
+    p = isax.paa(x, segments)
+    sym = torch.searchsorted(breakpoints, p.contiguous(), side="left")
+    return sym.to(torch.uint8), p
+
+
+def euclid_sq(query: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """(n,) query x (B, n) data -> (B,) squared Euclidean distances."""
+    d = data.to(torch.float32) - query[None, :].to(torch.float32)
+    return isax.sum_last(d * d)
+
+
+def euclid_sq_gather(
+    queries: torch.Tensor, raw: torch.Tensor, positions: torch.Tensor
+) -> torch.Tensor:
+    """(Q, n) queries x raw (N, n) rows at (Q, R) positions -> (Q, R).
+
+    The fused-gather form the RDC rounds call. Positions are clamped to
+    ``[0, N - 1]``, as the reference's ``take(..., mode="clip")``: a
+    ``NO_POS = -1`` slot reads row 0, never the last row.
+    """
+    pos = positions.to(torch.int64).clamp(0, raw.shape[0] - 1)
+    d = raw[pos] - queries[:, None, :]  # (Q, R, n)
+    return isax.sum_last(d * d)

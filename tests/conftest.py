@@ -23,6 +23,13 @@ except ImportError:  # hypothesis is optional, like in the test modules
     pass
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card; skips inside its fixture when "
+        "torch.cuda.is_available() is False")
+
+
 @pytest.fixture(scope="session")
 def walk_20k():
     from repro.core import datagen
