@@ -18,14 +18,30 @@ Phases, each of which raises (exit code 1) on a failed check:
                 n = 256, w = 16, card = 256) at N = 2**log2_n series made on
                 the card from ``--seed``: ``build_index``, ``exact_knn_batch``
                 (Q queries, k, round 4096, leaf 256) and ``knn_batch_tiered``
-                at epsilon 0.1 and budget 2. Launch counts are set to 0 just
-                before and read just after; every kernel must have launched.
-                Answers are held against an on-card brute-force oracle;
-  5. kernels  — each kernel against its plain version on the same inputs,
-                at the shapes the full-size path gave it, timed with CUDA
-                events beside its bound (the larger of bytes over 3.35 TB/s
-                and fp32 operations over 67 TFLOP/s, the H100 SXM peaks).
+                at epsilon 0.1 and budget 2. Answers are held against an
+                on-card brute-force oracle;
+  5. baselines — the paper's single-query algorithms on phase 4's index,
+                for its first 8 queries: ``exact_search_single`` (ParIS+),
+                ``nb_exact_search`` (nb-ParIS+, 16 workers) and
+                ``brute_force`` (the UCR-Suite scan), each 1-NN held against
+                the oracle, with per-query times, raw reads and rounds;
+  6. kernels  — each kernel against its plain version on the same inputs,
+                at the shapes the paths gave it, timed with CUDA events
+                beside its bound (the larger of bytes over 3.35 TB/s and
+                fp32 operations over 67 TFLOP/s, the H100 SXM peaks);
+  7. packed   — phase 4's index is freed (its answers kept), the same
+                series are made again from ``--seed``, cut into five
+                contiguous components (a base, two runs, two deltas; no
+                size a multiple of the 128-row block), built and packed:
+                ``exact_knn_batch_packed`` must return phase 4's positions
+                and bit-identical distances, and ``knn_batch_packed_tiered``
+                at epsilon 0.1, seeded by ``packed_seed``, the (1 + eps)
+                guarantee; peak device memory must stay under 70 GiB. Then
+                the packed lower-bound kernel's row of phase 6.
 
+Phases 4, 5 and 7 each drive a path with every launch count set to 0 just
+before and read just after; each kernel of a path must have launched on
+it, and a kernel's ``launches`` are its counts summed over those paths.
 The last three lines of standard output are the kernels' JSON object, the
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
 It imports no JAX: the port is the package ``repro_torch`` under ``src/``.
@@ -51,7 +67,20 @@ KERNEL_ROWS = {  # name -> (source, TPU kernel it replaces)
                              "src/repro/kernels/lower_bound.py:54"),
     "euclid_sq": ("src/repro_torch/kernels/csrc/euclidean.cu",
                   "src/repro/kernels/euclidean.py:21"),
+    "lower_bound_sq": ("src/repro_torch/kernels/csrc/lower_bound.cu",
+                       "src/repro/kernels/lower_bound.py:26"),  # and :42
+    "lower_bound_sq_multi": ("src/repro_torch/kernels/csrc/lower_bound.cu",
+                             "src/repro/kernels/lower_bound.py:77"),
+    "euclid_min": ("src/repro_torch/kernels/csrc/euclidean.cu",
+                   "src/repro/kernels/euclidean.py:54"),
 }
+# The kernels each driven path must launch.
+PATH_KERNELS = {
+    "full": ("paa_isax", "lower_bound_sq_batch", "euclid_sq"),
+    "baselines": ("lower_bound_sq", "euclid_sq", "euclid_min"),
+    "packed": ("paa_isax", "lower_bound_sq_multi", "euclid_sq"),
+}
+MAX_PEAK_GIB = 70.0  # the packed phase's device-memory limit
 
 
 class CheckFailed(AssertionError):
@@ -88,6 +117,31 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / FP32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def kernel_row(name, err, ms, plain_ms, n_bytes, n_ops) -> dict:
+    """One kernel's entry of the JSON line; ``launches`` is filled in later."""
+    b_ms, b_by = bound_ms(n_bytes, n_ops)
+    src, replaces = KERNEL_ROWS[name]
+    log(f"[kernel] {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms); bytes "
+        f"{n_bytes:.4g} ops {n_ops:.4g}; bound {b_ms:.4f} ms by {b_by}; "
+        f"{100 * b_ms / ms:.1f}% of bound; max abs err {err:.3g}")
+    return dict(name=name, route="cuda", source=src, replaces=replaces,
+                launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def path_counts(path: str) -> dict:
+    """Read the launch counts after driving ``path``; each of its kernels
+    must have launched."""
+    from repro_torch.kernels import ops
+
+    counts = ops.launch_counts()
+    log(f"[{path}] launches {counts}")
+    for name in PATH_KERNELS[path]:
+        expect(counts[name] > 0, f"kernel {name} never launched on the "
+               f"{path} path")
+    return counts
 
 
 def random_walks(num: int, n: int, gen, device) -> "torch.Tensor":
@@ -230,7 +284,7 @@ def phase_full(args, dev) -> dict:
         index, queries, Tier.budget(2), k=k, round_size=rs)
     torch.cuda.synchronize()
     t_bud = time.perf_counter() - t0
-    counts = ops.launch_counts()
+    counts = path_counts("full")
     peak = torch.cuda.max_memory_allocated()
 
     log(f"[full] N={n_series} n={n} Q={args.queries} k={k} round={rs} "
@@ -240,14 +294,11 @@ def phase_full(args, dev) -> dict:
         f"{reads.double().mean().item():.1f} max {reads.max().item()}, "
         f"{100 * reads.double().mean().item() / n_series:.3f}% of N); "
         f"epsilon 0.1 {t_eps:.3f} s; budget 2 {t_bud:.3f} s")
-    log(f"[full] launches {counts}; peak device memory "
-        f"{peak / 2**30:.2f} GiB")
-    for name, c in counts.items():
-        expect(c > 0, f"kernel {name} never launched on the main path")
+    log(f"[full] peak device memory {peak / 2**30:.2f} GiB")
 
     t0 = time.perf_counter()
     qz = isax.znorm(queries)
-    od, _ = oracle_knn(index.raw, qz, k)
+    od, op = oracle_knn(index.raw, qz, k)
     torch.cuda.synchronize()
     log(f"[full] brute-force oracle {time.perf_counter() - t0:.2f} s")
     check_against_oracle(index.raw, qz, d, p, od, "full exact")
@@ -261,7 +312,59 @@ def phase_full(args, dev) -> dict:
         expect(torch.all(dd >= od * (1 - 1e-5)), f"full {what}: below exact")
     log(f"[full] exact answers match the oracle; epsilon achieved max "
         f"{ach_eps.max():.4f}; budget achieved max {ach_bud.max():.4f}")
-    return dict(index=index, queries=queries, qz=qz, counts=counts)
+    return dict(index=index, queries=queries, qz=qz, counts=counts, d=d, p=p,
+                od=od, op=op, args=args)
+
+
+def phase_baselines(full: dict) -> dict:
+    import torch
+
+    from repro_torch.core import SearchConfig
+    from repro_torch.core.search import (brute_force, exact_search_single,
+                                         nb_exact_search)
+    from repro_torch.kernels import ops
+
+    index, queries, qz = full["index"], full["queries"], full["qz"]
+    od, op = full["od"][:, 0], full["op"][:, 0]
+    n_series = index.num_series
+    n_q = min(8, queries.shape[0])
+    cfg = SearchConfig()
+    algos = (("exact_search_single", lambda q: exact_search_single(index, q,
+                                                                   cfg)),
+             ("nb_exact_search", lambda q: nb_exact_search(index, q, cfg)),
+             ("brute_force", lambda q: brute_force(index, q)))
+    log(f"[baselines] N={n_series} queries={n_q} round={cfg.round_size} "
+        f"leaf={cfg.leaf_cap} workers={cfg.workers}")
+    ops.reset_launch_counts()
+    results = {name: [] for name, _ in algos}
+    for i in range(n_q):
+        for name, fn in algos:
+            t0 = time.perf_counter()
+            res = fn(queries[i])
+            torch.cuda.synchronize()
+            results[name].append((time.perf_counter() - t0, res))
+    counts = path_counts("baselines")
+
+    for name, _ in algos:
+        times = []
+        for i, (dt, res) in enumerate(results[name]):
+            d, pos = res.dist_sq, int(res.position)
+            direct = ((index.raw[pos] - qz[i]) ** 2).sum()
+            expect(torch.isfinite(d) and torch.allclose(
+                d, od[i], rtol=1e-5, atol=1e-5),
+                f"{name} query {i}: distance {d.item()} != oracle "
+                f"{od[i].item()}")
+            expect(pos == int(op[i]) or torch.allclose(
+                direct, od[i], rtol=1e-5, atol=1e-5),
+                f"{name} query {i}: position {pos} is not an oracle 1-NN")
+            reads = int(res.raw_reads)
+            log(f"[baselines] {name} q{i}: {1e3 * dt:.3f} ms; raw_reads "
+                f"{reads} ({100 * reads / n_series:.4f}% of N); rounds "
+                f"{res.rounds}")
+            times.append(dt)
+        log(f"[baselines] {name}: mean {1e3 * sum(times) / len(times):.3f} ms"
+            f" per query; every 1-NN matches the oracle")
+    return counts
 
 
 def phase_kernels(full: dict) -> list:
@@ -271,24 +374,13 @@ def phase_kernels(full: dict) -> list:
     from repro_torch.core.search import _smallest, select_len
     from repro_torch.kernels import ops
 
-    index, qz, counts = full["index"], full["qz"], full["counts"]
+    index, qz = full["index"], full["qz"]
     dev = index.device
     n_series, n = index.raw.shape
     w, card = index.segments, index.cardinality
     n_q = qz.shape[0]
     rows = []
-
-    def row(name, err, ms, plain_ms, n_bytes, n_ops):
-        b_ms, b_by = bound_ms(n_bytes, n_ops)
-        src, replaces = KERNEL_ROWS[name]
-        log(f"[kernel] {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms); bytes "
-            f"{n_bytes:.4g} ops {n_ops:.4g}; bound {b_ms:.4f} ms by {b_by}; "
-            f"{100 * b_ms / ms:.1f}% of bound; max abs err {err:.3g}; "
-            f"main-path launches {counts[name]}")
-        rows.append(dict(name=name, route="cuda", source=src,
-                         replaces=replaces, launches=counts[name],
-                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    row = lambda *a: rows.append(kernel_row(*a))  # noqa: E731
 
     # paa_isax on the z-normed full-size series, as build_index calls it.
     bp = isax.gaussian_breakpoints(card, dev)
@@ -348,7 +440,157 @@ def phase_kernels(full: dict) -> list:
                                              impl="ref"), 5),
         uniq * n * 4 + qz.numel() * 4 + pos.numel() * 4 + pos.numel() * 4,
         pos.numel() * 3 * n)
+    del pos, d_k, d_p
+
+    # lower_bound_sq: one query against all N rows, as the baselines call
+    # it, in both of the reference's layouts (the same kernel here).
+    qp1 = qps[0].contiguous()
+    lb_p = ops.lower_bound_sq(qp1, index.sax, bpp, n, impl="ref")
+    for transposed in (False, True):
+        lb_k = ops.lower_bound_sq(qp1, index.sax, bpp, n,
+                                  transposed=transposed)
+        expect(torch.equal(lb_k, lb_p), f"lower_bound_sq (transposed="
+               f"{transposed}) not bitwise equal to plain")
+    err = (lb_k - lb_p).abs().max().item()
+    del lb_k, lb_p
+    row("lower_bound_sq", err,
+        time_ms(lambda: ops.lower_bound_sq(qp1, index.sax, bpp, n), 50),
+        time_ms(lambda: ops.lower_bound_sq(qp1, index.sax, bpp, n,
+                                           impl="ref"), 3),
+        index.sax.numel() + bpp.numel() * 4 + w * 4 + n_series * 4,
+        n_series * (6 * w + 1))
+
+    # euclid_min: one query's brute-force scan of the raw rows.
+    q1 = qz[0].contiguous()
+    dk, ik = ops.euclid_min(q1, index.raw)
+    dp, ip = ops.euclid_min(q1, index.raw, impl="ref")
+    at_ik = ops.euclid_sq(q1, index.raw[int(ik)][None, :], impl="ref")[0]
+    err = (dk - dp).abs().item()
+    expect(torch.allclose(dk, dp, rtol=1e-5, atol=0),
+           f"euclid_min distance {dk.item()} != plain {dp.item()}")
+    expect(int(ik) == int(ip) or torch.allclose(at_ik, dp, rtol=1e-5, atol=0),
+           f"euclid_min row {int(ik)} is not the plain argmin {int(ip)}")
+    log(f"[kernel] euclid_min: row {int(ik)} (plain {int(ip)}), distance "
+        f"{dk.item()} (plain {dp.item()})")
+    row("euclid_min", err,
+        time_ms(lambda: ops.euclid_min(q1, index.raw), 10),
+        time_ms(lambda: ops.euclid_min(q1, index.raw, impl="ref"), 1),
+        n_series * n * 4 + n * 4 + 8, n_series * 3 * n)
     return rows
+
+
+def component_sizes(n_series: int) -> list:
+    """Five contiguous components: a base of ~N/2, runs of ~N/4 and ~N/8,
+    and two deltas of the rest; no size a multiple of the 128-row block."""
+    from repro_torch.core.search import DEFAULT_PACK_BLOCK as block
+
+    sizes = [n_series // 2 - 3, n_series // 4 - 5, n_series // 8 - 7]
+    rest = n_series - sum(sizes)
+    sizes += [rest // 2 - 11, rest - (rest // 2 - 11)]
+    for i in range(len(sizes) - 1):
+        if sizes[i] % block == 0:  # move one series to the next component
+            sizes[i] -= 1
+            sizes[i + 1] += 1
+    expect(sum(sizes) == n_series and all(s % block for s in sizes),
+           f"component sizes {sizes}")
+    return sizes
+
+
+def phase_packed(full: dict) -> tuple:
+    import numpy as np
+    import torch
+
+    from repro_torch.core import Tier, build_index, isax
+    from repro_torch.core.search import (exact_knn_batch_packed,
+                                         knn_batch_packed_tiered,
+                                         pack_components, packed_seed)
+    from repro_torch.kernels import ops
+
+    args, queries, qz = full["args"], full["queries"], full["qz"]
+    d1, p1 = full["d"], full["p"]
+    dev = qz.device
+    n_series, n, k, rs = full["index"].num_series, qz.shape[1], args.k, 4096
+    del full["index"]  # phase 4's index: its answers are kept
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    raw = random_walks(n_series, n, gen, dev)  # the same series again
+    torch.cuda.synchronize()
+    sizes = component_sizes(n_series)
+    offsets = np.concatenate([[0], np.cumsum(sizes)]).tolist()
+    log(f"[packed] N={n_series} in components {sizes}")
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    comps = [(build_index(raw[a:b], device=dev), a)
+             for a, b in zip(offsets[:-1], offsets[1:])]
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    del raw  # each component holds its z-normed rows
+    t0 = time.perf_counter()
+    packed = pack_components(comps)
+    torch.cuda.synchronize()
+    t_pack = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    d, p, reads, updates, rounds = exact_knn_batch_packed(
+        packed, queries, k=k, round_size=rs, stats=True)
+    torch.cuda.synchronize()
+    t_exact = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    seed = packed_seed(comps, queries)
+    d_eps, p_eps, ach = knn_batch_packed_tiered(
+        packed, queries, Tier.epsilon(0.1), k=k, round_size=rs, seed=seed)
+    torch.cuda.synchronize()
+    t_eps = time.perf_counter() - t0
+    counts = path_counts("packed")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    log(f"[packed] 5 builds {t_build:.3f} s; pack_components {t_pack:.3f} s "
+        f"(N_pad={packed.sax.shape[0]}); exact_knn_batch_packed "
+        f"{t_exact:.3f} s ({rounds} rounds, reads/query mean "
+        f"{reads.double().mean().item():.1f} max {reads.max().item()}, "
+        f"{100 * reads.double().mean().item() / n_series:.3f}% of N); "
+        f"packed_seed + epsilon 0.1 {t_eps:.3f} s")
+    log(f"[packed] peak device memory {peak:.2f} GiB (limit "
+        f"{MAX_PEAK_GIB:.0f})")
+    expect(peak < MAX_PEAK_GIB, f"packed peak memory {peak:.2f} GiB")
+    expect(torch.equal(p, p1), "packed exact positions differ from the "
+           "single index's")
+    expect(torch.equal(d, d1), "packed exact distances not bitwise equal "
+           "to the single index's")
+    expect(np.all(ach <= 0.1 + 1e-6), "packed: epsilon achieved > 0.1")
+    expect(torch.all(d_eps.sqrt() <= 1.1 * d.sqrt() * (1 + 1e-5)),
+           "packed: epsilon answer worse than 1.1 x exact")
+    direct = ((packed.raw[p_eps.long()] - qz[:, None, :]) ** 2).sum(dim=-1)
+    expect(torch.allclose(direct, d_eps, rtol=1e-5, atol=1e-5),
+           "packed epsilon: a position is not at its reported distance")
+    log(f"[packed] exact answers equal phase 4's bit for bit; epsilon "
+        f"achieved max {ach.max():.4f}")
+
+    # The packed lower-bound kernel's row, on the buffer the path swept.
+    bpp = isax.padded_breakpoints(packed.cardinality, dev)
+    qps = isax.paa(qz, packed.segments)
+    w, n_pad, n_q = packed.segments, packed.sax.shape[0], qz.shape[0]
+
+    def multi(impl="auto"):
+        return ops.lower_bound_sq_multi(qps, packed.sax, bpp, n,
+                                        packed.block_len, impl=impl,
+                                        block_n=packed.block)
+
+    lb_k, lb_p = multi(), multi("ref")
+    fin = torch.isfinite(lb_p)
+    err = (lb_k[fin] - lb_p[fin]).abs().max().item()
+    expect(torch.equal(lb_k, lb_p), "lower_bound_sq_multi not bitwise equal "
+           "to plain")
+    del lb_k, lb_p, fin
+    row = kernel_row(
+        "lower_bound_sq_multi", err, time_ms(multi, 10),
+        time_ms(lambda: multi("ref"), 2),
+        n_q * w * 4 + packed.sax.numel() + packed.block_len.numel() * 4
+        + bpp.numel() * 4 + n_q * n_pad * 4,
+        n_q * n_series * (6 * w + 1))
+    return counts, row
 
 
 def main(argv=None) -> int:
@@ -373,11 +615,27 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
-    name, count, smi = phase_device()
-    phase_build()
-    phase_quickstart(dev)
-    full = phase_full(args, dev)
-    rows = phase_kernels(full)
+
+    def phase(label, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        log(f"[{label}] phase {time.perf_counter() - t0:.2f} s")
+        return out
+
+    name, count, smi = phase("device", phase_device)
+    phase("build", phase_build)
+    phase("quickstart", phase_quickstart, dev)
+    full = phase("full", phase_full, args, dev)
+    base_counts = phase("baselines", phase_baselines, full)
+    rows = phase("kernels", phase_kernels, full)
+    packed_counts, multi_row = phase("packed", phase_packed, full)
+    rows.append(multi_row)
+    for row in rows:  # launches: summed over the driven paths
+        row["launches"] = sum(c[row["name"]] for c in (
+            full["counts"], base_counts, packed_counts))
+        expect(row["launches"] > 0, f"{row['name']} never launched")
+    expect(sorted(r["name"] for r in rows) == sorted(KERNEL_ROWS),
+           "the kernels line must list every kernel")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -6,24 +6,42 @@ written for the H100. It imports no JAX. Entry points run on the card
 (``device="cuda"``) unless the caller asks for the CPU.
 """
 
-from repro_torch.convert import index_from_arrays, index_to_arrays
+from repro_torch.convert import (
+    index_from_arrays,
+    index_to_arrays,
+    packed_from_arrays,
+    packed_to_arrays,
+)
 from repro_torch.core import (
+    PackedComponents,
     ParISIndex,
     SearchConfig,
     SearchResult,
     Tier,
+    brute_force,
     build_index,
+    build_sharded_index,
     exact_knn,
     exact_knn_batch,
+    exact_knn_batch_packed,
     exact_search,
     exact_search_batch,
+    exact_search_single,
+    knn_batch_packed_tiered,
     knn_batch_tiered,
     make_batch_engine,
+    nb_exact_search,
+    pack_components,
+    packed_seed,
 )
 
 __all__ = [
-    "index_from_arrays", "index_to_arrays",
-    "ParISIndex", "SearchConfig", "SearchResult", "Tier", "build_index",
-    "exact_knn", "exact_knn_batch", "exact_search", "exact_search_batch",
-    "knn_batch_tiered", "make_batch_engine",
+    "index_from_arrays", "index_to_arrays", "packed_from_arrays",
+    "packed_to_arrays",
+    "PackedComponents", "ParISIndex", "SearchConfig", "SearchResult", "Tier",
+    "brute_force", "build_index", "build_sharded_index", "exact_knn",
+    "exact_knn_batch", "exact_knn_batch_packed", "exact_search",
+    "exact_search_batch", "exact_search_single", "knn_batch_packed_tiered",
+    "knn_batch_tiered", "make_batch_engine", "nb_exact_search",
+    "pack_components", "packed_seed",
 ]

@@ -1,10 +1,13 @@
-"""Carry an index between the JAX package and the port as numpy arrays.
+"""Carry an index or a packed store between the JAX package and the port.
 
 ``index_from_arrays`` takes the four arrays of a ParIS index (for example
 ``np.asarray(jax_index.sax)`` and friends) and returns the port's
 :class:`~repro_torch.core.index.ParISIndex` on ``device``;
-``index_to_arrays`` goes the other way. Neither imports JAX: the arrays are
-plain numpy, so the tests can run both engines over one identical index.
+``index_to_arrays`` goes the other way. ``packed_from_arrays`` and
+``packed_to_arrays`` do the same for a packed multi-component store
+(:class:`~repro_torch.core.search.PackedComponents`). None of them imports
+JAX: the arrays are plain numpy, so the tests can run both engines over
+one identical index or packed buffer.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import torch
 
 from repro_torch.core.device import resolve_device
 from repro_torch.core.index import ParISIndex
+from repro_torch.core.search import PackedComponents
 
 
 def index_from_arrays(sax, pos, bucket_offsets, raw, series_length: int,
@@ -55,4 +59,53 @@ def index_to_arrays(index: ParISIndex) -> dict:
         series_length=index.series_length,
         segments=index.segments,
         cardinality=index.cardinality,
+    )
+
+
+def packed_from_arrays(sax, gpos, block_len, raw, num_series: int, block: int,
+                       series_length: int, segments: int, cardinality: int,
+                       device="cuda") -> PackedComponents:
+    """numpy arrays of a packed store (buffers + file-order raw) -> store."""
+    dev = resolve_device(device)
+
+    def put(x, dtype):
+        return torch.tensor(np.asarray(x), dtype=dtype, device=dev)
+
+    packed = PackedComponents(
+        sax=put(sax, torch.uint8),
+        gpos=put(gpos, torch.int32),
+        block_len=put(block_len, torch.int32),
+        raw=put(raw, torch.float32),
+        num_series=int(num_series),
+        block=int(block),
+        series_length=int(series_length),
+        segments=int(segments),
+        cardinality=int(cardinality),
+    )
+    n_pad = packed.sax.shape[0]
+    if packed.sax.shape != (n_pad, packed.segments) or n_pad % packed.block:
+        raise ValueError(f"sax shape {tuple(packed.sax.shape)} is not "
+                         f"(N_pad, {packed.segments}) in blocks of "
+                         f"{packed.block}")
+    if packed.gpos.shape != (n_pad,):
+        raise ValueError("gpos does not match the sax rows")
+    if packed.block_len.shape != (n_pad // packed.block,):
+        raise ValueError("block_len must have one entry per block")
+    if packed.raw.shape != (packed.num_series, packed.series_length):
+        raise ValueError("raw must be (num_series, series_length)")
+    return packed
+
+
+def packed_to_arrays(packed: PackedComponents) -> dict:
+    """The packed store's arrays as host numpy arrays plus its static sizes."""
+    return dict(
+        sax=packed.sax.cpu().numpy(),
+        gpos=packed.gpos.cpu().numpy(),
+        block_len=packed.block_len.cpu().numpy(),
+        raw=packed.raw.cpu().numpy(),
+        num_series=packed.num_series,
+        block=packed.block,
+        series_length=packed.series_length,
+        segments=packed.segments,
+        cardinality=packed.cardinality,
     )

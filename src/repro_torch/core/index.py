@@ -167,6 +167,56 @@ def empty_index(
     )
 
 
+@dataclasses.dataclass(frozen=True)
+class ShardedIndex:
+    """S self-contained :class:`ParISIndex` shards over file-order slices.
+
+    Shard ``s`` owns the contiguous file-position range
+    ``[offsets[s], offsets[s+1])``; its positions are shard-local
+    (0-based), so a global answer is ``local_pos + offsets[s]``. Shards
+    partition the file range, so per-shard k-NN result lists are
+    ownership-disjoint.
+    """
+
+    shards: tuple  # (S,) ParISIndex
+    offsets: tuple  # (S + 1,) file-order partition bounds
+
+    @property
+    def num_shards(self) -> int:
+        """Number of shards."""
+        return len(self.shards)
+
+    @property
+    def num_series(self) -> int:
+        """Total series across all shards."""
+        return self.offsets[-1]
+
+
+def build_sharded_index(index: ParISIndex, num_shards: int) -> ShardedIndex:
+    """Split an assembled index into S self-contained file-order shards.
+
+    The file order is cut into S contiguous slices whose sizes differ by at
+    most one. Each shard's rows are *selected* from the full index's sorted
+    arrays, not rebuilt: the leaf-order sort is stable, so the subsequence
+    is exactly what ``build_index`` over the slice produces. A shard's
+    ``raw`` is a view of the full index's rows, not a copy.
+    """
+    n = index.num_series
+    if not 1 <= num_shards <= n:
+        raise ValueError(f"num_shards={num_shards} outside [1, {n}]")
+    base, rem = divmod(n, num_shards)
+    bounds = [0]
+    for s in range(num_shards):
+        bounds.append(bounds[-1] + base + (1 if s < rem else 0))
+    shards = []
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        mask = (index.pos >= lo) & (index.pos < hi)
+        shards.append(assemble_index(
+            index.sax[mask], index.pos[mask] - lo, index.raw[lo:hi],
+            index.segments, index.cardinality))
+    return ShardedIndex(tuple(shards), tuple(bounds))
+
+
 def validate_index(index: ParISIndex) -> dict:
     """Structural invariants of an index (a self-check after a build)."""
     pos = index.pos.cpu().numpy()

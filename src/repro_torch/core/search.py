@@ -54,6 +54,7 @@ class SearchConfig:
     leaf_cap: int = 256  # approximate-search window ("leaf" size)
     sort: bool = True  # sort candidate list by lower bound (ParIS+)
     impl: str = "auto"  # kernel dispatch (ops.py)
+    workers: int = 16  # nb- variant only: #independent scan blocks
     select: str = "topk"  # candidate ordering: "topk" partial / "sort" full
 
 
@@ -267,6 +268,7 @@ class EngineView:
 
       n_rows        candidate rows the LBC pass covers
       num_series    real series behind those rows, for k validation
+                    (None: the caller has already clamped k)
       segments      PAA word width of the stored SAX rows
       lower_bounds  ((Q, w) query PAA, impl) -> (Q, n_rows) squared lower
                     bounds; padding rows must come back +inf
@@ -278,16 +280,17 @@ class EngineView:
                     mask). The reference splits this into ``gather_raw``
                     and ``euclid_sq``; the port's kernel fuses the two.
       seed          ((Q, n) queries, impl) -> ((Q,) bsf, (Q,) pos, leaf
-                    reads): the approximate-search BSF seed
+                    reads): the approximate-search BSF seed, or None for a
+                    cold start at (+inf, ``NO_POS``)
     """
 
     n_rows: int
-    num_series: int
+    num_series: Optional[int]
     segments: int
     lower_bounds: Callable
     positions: Callable
     distances: Callable
-    seed: Callable
+    seed: Optional[Callable] = None
 
 
 def _index_view(index: ParISIndex, *, leaf_cap: int) -> EngineView:
@@ -342,6 +345,7 @@ def _engine_core(
     impl: str,
     eps_factor_sq: Optional[torch.Tensor] = None,
     budget_rounds: Optional[torch.Tensor] = None,
+    seed0: Optional[tuple] = None,
 ) -> tuple:
     """THE batched RDC loop — the single engine core behind every search.
 
@@ -361,8 +365,12 @@ def _engine_core(
     :func:`tier_arrays`) runs the TIERED variant, which returns a sixth
     output, the per-query achieved squared error factor; tiers require
     ``sort=True``. Without them the engine is the exact path.
+
+    The BSF starts from ``seed0 = ((Q,) dist, (Q,) pos)`` when given (reads
+    start at 0), else from the view's seed hook (reads start at its window
+    size), else cold at (+inf, ``NO_POS``) with reads at 0.
     """
-    if not 1 <= k <= view.num_series:
+    if view.num_series is not None and not 1 <= k <= view.num_series:
         raise ValueError(f"k={k} outside [1, {view.num_series}]")
     tiered = eps_factor_sq is not None
     if tiered and budget_rounds is None:
@@ -378,13 +386,17 @@ def _engine_core(
     qs = isax.znorm(queries)
     qps = isax.paa(qs, view.segments)
 
-    # Result lists: slot 0 holds the approximate seed, the rest (INF, NO_POS).
-    bsf0, pos0, leaf = view.seed(queries, impl)
+    # Result lists: slot 0 holds the seed (if any), the rest (INF, NO_POS).
     top_d = torch.full((n_q, k), INF, device=dev)
     top_p = torch.full((n_q, k), NO_POS, dtype=torch.int32, device=dev)
-    top_d[:, 0] = bsf0
-    top_p[:, 0] = pos0.to(torch.int32)
-    reads = torch.full((n_q,), leaf, dtype=torch.int32, device=dev)
+    reads0 = 0
+    if seed0 is None and view.seed is not None:
+        bsf0, pos0, reads0 = view.seed(queries, impl)
+        seed0 = (bsf0, pos0)
+    if seed0 is not None:
+        top_d[:, 0] = seed0[0]
+        top_p[:, 0] = seed0[1].to(torch.int32)
+    reads = torch.full((n_q,), reads0, dtype=torch.int32, device=dev)
     updates = torch.zeros((n_q,), dtype=torch.int32, device=dev)
     skip_lb = torch.full((n_q,), INF, device=dev) if tiered else None
 
@@ -521,12 +533,23 @@ def _engine_core(
     return top_d, top_p, reads, updates, r
 
 
-def _queries(index: ParISIndex, queries) -> torch.Tensor:
-    qs = as_f32(queries, index.device)
-    if qs.dim() != 2 or qs.shape[1] != index.series_length:
+def _queries(store, queries) -> torch.Tensor:
+    """(Q, n) float32 queries on the device of an index or packed store."""
+    qs = as_f32(queries, store.device)
+    if qs.dim() != 2 or qs.shape[1] != store.series_length:
         raise ValueError(
-            f"queries must be (Q, {index.series_length}), got {tuple(qs.shape)}")
+            f"queries must be (Q, {store.series_length}), got {tuple(qs.shape)}")
     return qs
+
+
+def _tier_list(tier, n_q: int) -> list:
+    """One :class:`Tier` per query from one tier or a sequence of them."""
+    if isinstance(tier, (Tier, str)) or tier is None:
+        return [as_tier(tier)] * n_q
+    tiers = [as_tier(t) for t in tier]
+    if len(tiers) != n_q:
+        raise ValueError(f"got {len(tiers)} tiers for {n_q} queries")
+    return tiers
 
 
 def _pad_missing(top_d, top_p, k: int):
@@ -568,20 +591,306 @@ def knn_batch_tiered(
     if k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
     qs = _queries(index, queries)
-    if isinstance(tier, (Tier, str)) or tier is None:
-        tiers = [as_tier(tier)] * qs.shape[0]
-    else:
-        tiers = [as_tier(t) for t in tier]
-        if len(tiers) != qs.shape[0]:
-            raise ValueError(
-                f"got {len(tiers)} tiers for {qs.shape[0]} queries")
-    eps_f, budget = tier_arrays(tiers, qs.device)
+    eps_f, budget = tier_arrays(_tier_list(tier, qs.shape[0]), qs.device)
     top_d, top_p, _, _, _, ach_sq = _run_engine(
         index, qs, k=min(k, index.num_series), round_size=round_size,
         leaf_cap=leaf_cap, sort=True, select=select, impl=impl,
         eps_factor_sq=eps_f, budget_rounds=budget)
     top_d, top_p = _pad_missing(top_d, top_p, k)
     return top_d, top_p, achieved_epsilon(ach_sq)
+
+
+# --- The packed multi-component path: base + runs + deltas in one sweep. ---
+
+DEFAULT_PACK_BLOCK = 128  # rows per block of the packed layout
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedComponents:
+    """A multi-component store (base + runs + deltas) packed for ONE sweep.
+
+    Each component's leaf-sorted SAX rows are padded to a ``block``
+    multiple and concatenated in ascending file-offset order, so the fused
+    lower-bound kernel (:func:`ops.lower_bound_sq_multi`) covers the whole
+    store in one (Q, N_pad) pass. The block alignment means appending a
+    component only appends blocks: earlier components' rows never move.
+    ``gpos`` maps packed rows to global file positions (:data:`NO_POS` at
+    pad rows, so a pad that reaches a result list is already the
+    sentinel), ``block_len`` is the kernel's per-block count of real rows
+    (0 for a dead tail block), and ``raw`` is the file-order concatenation
+    of the components' raws (they cover contiguous, adjacent file ranges),
+    which candidate gathers index directly by global position.
+    """
+
+    sax: torch.Tensor  # (N_pad, w) uint8, per-component leaf order
+    gpos: torch.Tensor  # (N_pad,) int32 global file positions; NO_POS at pads
+    block_len: torch.Tensor  # (N_pad // block,) int32 real rows per block
+    raw: torch.Tensor  # (N_total, n) f32, file order
+    num_series: int  # real rows (N_total)
+    block: int
+    series_length: int
+    segments: int
+    cardinality: int
+
+    @property
+    def device(self) -> torch.device:
+        """The device every array of the store lives on."""
+        return self.sax.device
+
+
+def pack_one_component(ix: ParISIndex, off: int, block: int) -> tuple:
+    """One component's packed parts: (sax, gpos, block_len) on its device.
+
+    The per-component packing primitive of :func:`pack_components`: the
+    rows padded to a ``block`` multiple with zero symbols, ``NO_POS``
+    positions and a short last block.
+    """
+    m = ix.num_series
+    pad = (-m) % block
+    sax = ix.sax
+    gp = ix.pos + off
+    if pad:
+        sax = torch.cat([sax, sax.new_zeros((pad, sax.shape[1]))])
+        gp = torch.cat([gp, gp.new_full((pad,), NO_POS)])
+    bl = torch.full(((m + pad) // block,), block, dtype=torch.int32,
+                    device=ix.device)
+    if pad:
+        bl[-1] = block - pad
+    return sax, gp.to(torch.int32), bl
+
+
+def pack_components(components, block: Optional[int] = None
+                    ) -> PackedComponents:
+    """Pack (index, file offset) components for the fused multi-sweep.
+
+    ``components`` must come in ascending offset order and cover
+    contiguous, adjacent file ranges starting at 0. Zero-series components
+    are skipped. ``block=None`` takes :data:`DEFAULT_PACK_BLOCK` (128): the
+    reference resolves it through its tuning table, whose CPU entry for
+    this kernel is also 128, and the port has no tuning table yet.
+    """
+    comps = [(ix, off) for ix, off in components if ix.num_series]
+    if not comps:
+        raise ValueError("pack_components needs at least one nonempty "
+                         "component")
+    if block is None:
+        block = DEFAULT_PACK_BLOCK
+    expect = 0
+    for ix, off in comps:
+        if off != expect:
+            raise ValueError(
+                f"components not contiguous: offset {off}, expected "
+                f"{expect}")
+        expect += ix.num_series
+    parts = [pack_one_component(ix, off, block) for ix, off in comps]
+    first = comps[0][0]
+    return PackedComponents(
+        sax=torch.cat([p[0] for p in parts]),
+        gpos=torch.cat([p[1] for p in parts]),
+        block_len=torch.cat([p[2] for p in parts]),
+        raw=torch.cat([ix.raw for ix, _ in comps]),
+        num_series=expect,
+        block=block,
+        series_length=first.series_length,
+        segments=first.segments,
+        cardinality=first.cardinality,
+    )
+
+
+def _packed_view(
+    sax: torch.Tensor,
+    gpos: torch.Tensor,
+    block_len: torch.Tensor,
+    raw: torch.Tensor,
+    *,
+    block: int,
+    series_length: int,
+    segments: int,
+    cardinality: int,
+    num_series: Optional[int],
+) -> EngineView:
+    """Packed-buffer hooks: the fused multi-component sweep over the core.
+
+    ONE masked lower-bound pass over the packed SAX buffer, candidate
+    positions through the ``gpos`` translation, distances to the
+    file-order raw rows at those global positions (``NO_POS`` and
+    dead-block rows clip to row 0 harmlessly: their +inf bound keeps them
+    out of every mask). No seed hook: a packed buffer has no global
+    bucket table, so the BSF starts at +inf unless the caller seeds it.
+    """
+    bpp = isax.padded_breakpoints(cardinality, sax.device)
+
+    def lower_bounds(qps, impl):
+        return ops.lower_bound_sq_multi(
+            qps, sax, bpp, series_length, block_len, impl=impl,
+            block_n=block)
+
+    return EngineView(
+        n_rows=sax.shape[0],
+        num_series=num_series,
+        segments=segments,
+        lower_bounds=lower_bounds,
+        positions=lambda idx: gpos[idx.to(torch.int64)],
+        distances=lambda qs, pos, impl: ops.euclid_sq_gather(
+            qs, raw, pos, impl=impl),
+        seed=None,
+    )
+
+
+def _packed_view_of(packed: PackedComponents, num_series) -> EngineView:
+    return _packed_view(
+        packed.sax, packed.gpos, packed.block_len, packed.raw,
+        block=packed.block, series_length=packed.series_length,
+        segments=packed.segments, cardinality=packed.cardinality,
+        num_series=num_series)
+
+
+def packed_engine_args(
+    sax: torch.Tensor,
+    gpos: torch.Tensor,
+    block_len: torch.Tensor,
+    raw: torch.Tensor,
+    queries: torch.Tensor,
+    *,
+    block: int,
+    series_length: int,
+    segments: int,
+    cardinality: int,
+    k: int,
+    round_size: int,
+    select: str = "topk",
+    impl: str = "auto",
+    eps_factor_sq: Optional[torch.Tensor] = None,
+    budget_rounds: Optional[torch.Tensor] = None,
+    seed_d: Optional[torch.Tensor] = None,
+    seed_p: Optional[torch.Tensor] = None,
+) -> tuple:
+    """The fused packed engine over buffers passed as arguments.
+
+    The buffers may be capacity-padded (dead tail blocks with
+    ``block_len == 0``). Callers clamp ``k`` themselves: the store's real
+    size is not known here, so the core skips its k check. Tiered calls
+    pass ``eps_factor_sq``/``budget_rounds`` (:func:`tier_arrays`) and get
+    the 6-tuple; ``seed_d``/``seed_p`` optionally seed each query's BSF
+    with a (distance, global position) pair (:func:`packed_seed`).
+    """
+    view = _packed_view(
+        sax, gpos, block_len, raw, block=block, series_length=series_length,
+        segments=segments, cardinality=cardinality, num_series=None)
+    seed0 = None if seed_d is None else (seed_d, seed_p)
+    return _engine_core(
+        view, as_f32(queries, sax.device), k=k, round_size=round_size,
+        sort=True, select=select, impl=impl, eps_factor_sq=eps_factor_sq,
+        budget_rounds=budget_rounds, seed0=seed0)
+
+
+def exact_knn_batch_packed(
+    packed: PackedComponents,
+    queries,
+    k: int = 1,
+    round_size: int = 4096,
+    impl: str = "auto",
+    select: str = "topk",
+    stats: bool = False,
+) -> tuple:
+    """Batched exact k-NN over a packed multi-component store.
+
+    One fused lower-bound pass and one RDC loop for base + runs + deltas
+    together; positions are global file offsets. Same clamp/sentinel
+    protocol as :func:`exact_knn_batch`, and the same answers as that
+    function over one index built from the concatenated data.
+    """
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    k_eff = min(k, packed.num_series)
+    top_d, top_p, reads, updates, rounds = _engine_core(
+        _packed_view_of(packed, packed.num_series), _queries(packed, queries),
+        k=k_eff, round_size=round_size, sort=True, select=select, impl=impl)
+    top_d, top_p = _pad_missing(top_d, top_p, k)
+    if stats:
+        return top_d, top_p, reads, updates, rounds
+    return top_d, top_p
+
+
+def packed_seed(components, queries, leaf_cap: int = 256) -> tuple:
+    """Approximate BSF seed for a packed engine call.
+
+    The packed view has no global bucket table; this seeds each query from
+    the bucket table of the LARGEST live component (the first of equal
+    size), with positions translated to global file offsets. Returns
+    ``((Q,) float32 distances, (Q,) int32 global positions)``: true
+    distances at real positions, so the engine's dedup keeps the result
+    list duplicate-free when it meets them again.
+    """
+    comps = [(ix, off) for ix, off in components if ix.num_series]
+    if not comps:
+        raise ValueError("packed_seed needs at least one nonempty "
+                         "component")
+    ix, off = max(comps, key=lambda c: c[0].num_series)
+    seed_d, seed_p = approx_search_batch(
+        ix, queries, min(int(leaf_cap), ix.num_series))
+    return seed_d, seed_p.to(torch.int32) + off
+
+
+def knn_batch_packed_tiered(
+    packed: PackedComponents,
+    queries,
+    tier,
+    k: int = 1,
+    round_size: int = 4096,
+    impl: str = "auto",
+    select: str = "topk",
+    seed: Optional[tuple] = None,
+) -> tuple:
+    """Tiered batched k-NN over a packed multi-component store.
+
+    Same contract as :func:`knn_batch_tiered`, over the fused packed
+    sweep. ``seed`` is an optional ``((Q,) dist, (Q,) global pos)`` BSF
+    seed (:func:`packed_seed`); without one the BSF starts at
+    (+inf, ``NO_POS``), which weakens (never breaks) the budget tier's
+    achieved bounds.
+    """
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    qs = _queries(packed, queries)
+    n_q = qs.shape[0]
+    eps_f, budget = tier_arrays(_tier_list(tier, n_q), qs.device)
+    if seed is None:
+        seed_d = torch.full((n_q,), INF, device=qs.device)
+        seed_p = torch.full((n_q,), NO_POS, dtype=torch.int32,
+                            device=qs.device)
+    else:
+        seed_d = as_f32(seed[0], qs.device)
+        seed_p = torch.as_tensor(seed[1], device=qs.device).to(torch.int32)
+    top_d, top_p, _, _, _, ach_sq = _engine_core(
+        _packed_view_of(packed, packed.num_series), qs,
+        k=min(k, packed.num_series), round_size=round_size, sort=True,
+        select=select, impl=impl, eps_factor_sq=eps_f, budget_rounds=budget,
+        seed0=(seed_d, seed_p))
+    top_d, top_p = _pad_missing(top_d, top_p, k)
+    return top_d, top_p, achieved_epsilon(ach_sq)
+
+
+def exact_search_batch_packed(
+    packed: PackedComponents,
+    queries,
+    cfg: SearchConfig = SearchConfig(),
+) -> SearchResult:
+    """Batched exact 1-NN over a packed multi-component store.
+
+    Only the sorted-candidate engine exists for the packed layout:
+    ``cfg.sort=False`` (the serial scan) is refused rather than answered by
+    another algorithm.
+    """
+    if not cfg.sort:
+        raise ValueError(
+            "the packed engine has no sort=False (serial-scan) mode; use "
+            "the per-component path")
+    top_d, top_p, reads, updates, rounds = _engine_core(
+        _packed_view_of(packed, packed.num_series), _queries(packed, queries),
+        k=1, round_size=cfg.round_size, sort=True, select=cfg.select,
+        impl=cfg.impl)
+    return SearchResult(top_d[:, 0], top_p[:, 0], reads, updates, rounds)
 
 
 def pow2_bucket(n: int, lo: int = 1) -> int:
@@ -725,3 +1034,173 @@ def exact_knn(
         index, as_f32(query, index.device)[None, :], k=k,
         round_size=round_size, impl=impl, select=select)
     return top_d[0], top_p[0]
+
+
+# --- The paper's single-query algorithms: ParIS+, nb-ParIS+, UCR-Suite. ---
+
+
+def _query(index: ParISIndex, query) -> torch.Tensor:
+    q = as_f32(query, index.device)
+    if q.shape != (index.series_length,):
+        raise ValueError(
+            f"query must be ({index.series_length},), got {tuple(q.shape)}")
+    return q
+
+
+def _query_paa(index: ParISIndex, query: torch.Tensor) -> tuple:
+    q = isax.znorm(query)
+    return q, isax.paa(q, index.segments)
+
+
+def _pad_to(x: torch.Tensor, size: int, fill) -> torch.Tensor:
+    pad = size - x.shape[0]
+    if pad <= 0:
+        return x
+    return torch.cat([x, x.new_full((pad,), fill)])
+
+
+def _exact_search_impl(
+    index: ParISIndex,
+    query: torch.Tensor,
+    *,
+    round_size: int,
+    leaf_cap: int,
+    sort: bool,
+    impl: str,
+) -> SearchResult:
+    n_series = index.num_series
+    rs = round_size
+    q, qp = _query_paa(index, query)
+    bsf, bsfpos = approx_search(index, query, leaf_cap, impl)
+    bsfpos = bsfpos.to(torch.int32)
+    bpp = isax.padded_breakpoints(index.cardinality, index.device)
+
+    # --- LBC phase: one pass over the whole SAX array. ---
+    lb = ops.lower_bound_sq(qp, index.sax, bpp, index.series_length,
+                            impl=impl)
+
+    # --- Candidate list (sorted for ParIS+; SAX order for the ADS+ mode). ---
+    if sort:
+        order = torch.argsort(lb, stable=True)  # jnp.argsort is stable
+        lb_sorted = lb[order]
+    else:
+        order = torch.arange(n_series, device=index.device)
+        lb_sorted = lb
+    n_rounds = -(-n_series // rs)
+    order = _pad_to(order, n_rounds * rs, 0)
+    lb_sorted = _pad_to(lb_sorted, n_rounds * rs, INF)
+
+    # --- RDC phase: rounds of fused gather + distance against one BSF. ---
+    reads = torch.tensor(leaf_cap, dtype=torch.int32, device=index.device)
+    updates = torch.zeros((), dtype=torch.int32, device=index.device)
+    r = 0
+    while r < n_rounds:
+        # A sorted list: everything past a pruned head is pruned too.
+        if sort and not bool(lb_sorted[r * rs] < bsf):
+            break
+        lbs = lb_sorted[r * rs:(r + 1) * rs]
+        mask = lbs < bsf
+        cand_pos = index.pos[order[r * rs:(r + 1) * rs]]
+        d = ops.euclid_sq_gather(q[None, :], index.raw, cand_pos,
+                                 impl=impl)[0]  # the "disk reads"
+        d = torch.where(mask, d, INF)
+        j = torch.argmin(d)
+        better = d[j] < bsf
+        bsf = torch.where(better, d[j], bsf)
+        bsfpos = torch.where(better, cand_pos[j], bsfpos)
+        reads = reads + mask.sum(dtype=torch.int32)
+        updates = updates + better.to(torch.int32)
+        r += 1
+    return SearchResult(bsf, bsfpos, reads, updates, r)
+
+
+def exact_search_single(
+    index: ParISIndex, query, cfg: SearchConfig = SearchConfig()
+) -> SearchResult:
+    """ParIS+ with the original one-query engine (full argsort candidates).
+
+    One (n,) query on the index's device: the approximate seed, one
+    lower-bound pass over all N rows, a stable argsort of the bounds, then
+    rounds of ``cfg.round_size`` candidates against one BSF until the
+    sorted head reaches it (``cfg.sort=False``: every round, in SAX order).
+    The baseline the batch engine is measured against.
+    """
+    return _exact_search_impl(
+        index, _query(index, query), round_size=cfg.round_size,
+        leaf_cap=cfg.leaf_cap, sort=cfg.sort, impl=cfg.impl)
+
+
+def _nb_exact_search_impl(
+    index: ParISIndex,
+    query: torch.Tensor,
+    *,
+    round_size: int,
+    leaf_cap: int,
+    workers: int,
+    impl: str,
+) -> SearchResult:
+    n_series = index.num_series
+    rs = round_size
+    dev = index.device
+    q, qp = _query_paa(index, query)
+    bsf0, pos0 = approx_search(index, query, leaf_cap, impl)
+    bpp = isax.padded_breakpoints(index.cardinality, dev)
+    lb = ops.lower_bound_sq(qp, index.sax, bpp, index.series_length,
+                            impl=impl)
+
+    # Worker w scans rows [w * rounds * rs, (w + 1) * rounds * rs) in SAX
+    # order, round by round, against its own BSF: no sharing, no sort.
+    per = -(-n_series // workers)
+    rounds = -(-per // rs)
+    padded = workers * rounds * rs
+    idx_blocks = _pad_to(torch.arange(n_series, device=dev), padded,
+                         0).reshape(workers, rounds, rs)
+    lb_blocks = _pad_to(lb, padded, INF).reshape(workers, rounds, rs)
+    qw = q[None, :].expand(workers, -1)
+    bsf = bsf0.expand(workers).clone()
+    pos = pos0.to(torch.int32).expand(workers).clone()
+    reads = torch.zeros((workers,), dtype=torch.int32, device=dev)
+    updates = torch.zeros((workers,), dtype=torch.int32, device=dev)
+    for r in range(rounds):  # the reference's scan: no read-back per round
+        lbs = lb_blocks[:, r]
+        mask = lbs < bsf[:, None]  # local BSF only (nb- semantics)
+        cand_pos = index.pos[idx_blocks[:, r]]  # (workers, rs)
+        d = torch.where(mask, ops.euclid_sq_gather(qw, index.raw, cand_pos,
+                                                   impl=impl), INF)
+        j = torch.argmin(d, dim=1, keepdim=True)
+        dj = d.gather(1, j)[:, 0]
+        better = dj < bsf
+        bsf = torch.where(better, dj, bsf)
+        pos = torch.where(better, cand_pos.gather(1, j)[:, 0], pos)
+        reads = reads + mask.sum(dim=1, dtype=torch.int32)
+        updates = updates + better.to(torch.int32)
+    j = torch.argmin(bsf)  # the first worker on ties
+    return SearchResult(
+        bsf[j], pos[j], reads.sum(dtype=torch.int32) + leaf_cap,
+        updates.sum(dtype=torch.int32), rounds)
+
+
+def nb_exact_search(
+    index: ParISIndex, query, cfg: SearchConfig = SearchConfig()
+) -> SearchResult:
+    """nb-ParIS+: ``cfg.workers`` independent workers, local BSFs (Fig. 8).
+
+    ``rounds`` is the per-worker round count; ``raw_reads`` sums every
+    worker's reads plus the seed window.
+    """
+    return _nb_exact_search_impl(
+        index, _query(index, query), round_size=cfg.round_size,
+        leaf_cap=cfg.leaf_cap, workers=cfg.workers, impl=cfg.impl)
+
+
+def brute_force(index: ParISIndex, query, impl: str = "auto") -> SearchResult:
+    """UCR-Suite analogue: one fused scan of every raw row, no index.
+
+    On the card the ``euclid_min`` kernel reduces the N distances to the
+    first row at the smallest one without writing them out.
+    """
+    q = isax.znorm(_query(index, query))
+    d, j = ops.euclid_min(q, index.raw, impl=impl)
+    n = torch.tensor(index.num_series, dtype=torch.int32, device=index.device)
+    one = torch.ones((), dtype=torch.int32, device=index.device)
+    return SearchResult(d, j, n, one, 1)

@@ -50,8 +50,16 @@ _SIGNATURES = {
     # qpaa, sax, bp_padded, out, Q, N, w, n_bp_padded, scale, stream
     "lower_bound_sq_batch_launch": (_VP, _VP, _VP, _VP, _I, _L, _I, _I, _F,
                                     _VP),
+    # qpaa, sax, bp_padded, out, N, w, n_bp_padded, scale, stream
+    "lower_bound_sq_launch": (_VP, _VP, _VP, _VP, _L, _I, _I, _F, _VP),
+    # qpaa, sax, bp_padded, block_len, out, Q, N, w, n_bp_padded, block_n,
+    # scale, stream
+    "lower_bound_sq_multi_launch": (_VP, _VP, _VP, _VP, _VP, _I, _L, _I, _I,
+                                    _I, _F, _VP),
     # queries, raw, positions, out, Q, R, N, n, pos_row_stride, stream
     "euclid_sq_gather_launch": (_VP, _VP, _VP, _VP, _I, _I, _L, _I, _L, _VP),
+    # query, data, best key, B, n, stream
+    "euclid_min_launch": (_VP, _VP, _VP, _L, _I, _VP),
 }
 
 

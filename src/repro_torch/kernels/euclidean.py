@@ -1,8 +1,8 @@
-"""Wrapper of the hand-written Hopper distance kernel (``csrc/euclidean.cu``).
+"""Wrappers of the hand-written Hopper distance kernels (``csrc/euclidean.cu``).
 
-Replaces the TPU kernel ``repro/kernels/euclidean.py::_euclid_kernel``
-(``euclid_sq_pallas``): squared Euclidean distances by the direct
-difference sum. On the TPU an XLA gather fetched the candidate rows and the
+:func:`euclid_sq_gather_cuda` replaces the TPU kernel
+``repro/kernels/euclidean.py::_euclid_kernel`` (``euclid_sq_pallas``):
+squared Euclidean distances by the direct difference sum. On the TPU an XLA gather fetched the candidate rows and the
 kernel ran once per query under ``vmap``; here one launch takes (Q, n)
 queries, the raw (N, n) rows and (Q, R) int32 positions and returns (Q, R)
 distances, with the gather fused in. Positions are clamped to [0, N - 1]
@@ -15,6 +15,14 @@ positions). The kernel gives each query a block, with the query in shared
 memory, and each candidate row a warp whose lanes read it in 16-byte
 pieces, several rows in flight per warp. It sums in another order than
 ``ref.euclid_sq_gather``, so the two agree to float rounding.
+
+:func:`euclid_min_cuda` replaces ``_euclid_min_kernel``
+(``euclid_min_pallas``), the brute-force scan: the (min, argmin) of one
+query's distances to every row, with the first row winning ties, and the
+(B,) distance vector never written to device memory. Blocks reduce their
+rows to one 64-bit key, (distance bits << 32) | row, and meet in one
+``atomicMin``; distances are non-negative, so the key orders as
+(distance, row). Bound: memory, the B x n rows read once.
 """
 
 from __future__ import annotations
@@ -23,7 +31,9 @@ import torch
 
 from repro_torch.kernels import _build
 
-launches = 0  # kernel launches since the caller last set it to 0
+# Kernel launches since the caller last set them to 0, one count per entry.
+launches = 0  # euclid_sq (the gather form)
+min_launches = 0  # euclid_min
 
 MAX_QUERIES = 65535  # one grid row per query
 
@@ -64,3 +74,29 @@ def euclid_sq_gather_cuda(queries: torch.Tensor, raw: torch.Tensor,
     _build.check(err, "euclid_sq_gather")
     launches += 1
     return out
+
+
+def euclid_min_cuda(query: torch.Tensor, data: torch.Tensor) -> tuple:
+    """(n,) query x (B, n) rows -> (0-d f32 min distance, 0-d int32 row)."""
+    global min_launches
+    _build.require(query, "query", torch.float32, 1)
+    _build.require(data, "data", torch.float32, 2)
+    _build.same_device(query, data)
+    b, n = data.shape
+    if query.shape[0] != n:
+        raise ValueError(f"query has n={query.shape[0]}, rows have {n}")
+    if b == 0:
+        raise ValueError("data has no rows to scan")
+    if b > 2 ** 31 - 1:
+        raise ValueError(f"at most 2**31 - 1 rows (int32 positions), got {b}")
+    if n * 4 > 48 * 1024:
+        raise ValueError(f"series length {n} exceeds the shared-memory stage")
+    best = torch.full((1,), -1, dtype=torch.int64, device=data.device)
+    lib = _build.load()
+    err = lib.euclid_min_launch(query.data_ptr(), data.data_ptr(),
+                                best.data_ptr(), b, n, _build.stream_of(data))
+    _build.check(err, "euclid_min")
+    min_launches += 1
+    key = best[0]
+    dist = (key >> 32).to(torch.int32).view(torch.float32)
+    return dist, (key & 0xFFFFFFFF).to(torch.int32)

@@ -1,19 +1,31 @@
-"""Wrapper of the hand-written Hopper lower-bound kernel (``csrc/lower_bound.cu``).
+"""Wrappers of the hand-written Hopper lower-bound kernel (``csrc/lower_bound.cu``).
 
-Replaces the TPU kernel ``repro/kernels/lower_bound.py::_lb_kernel_batch``
-(``lower_bound_sq_batch_pallas``): (Q, w) f32 query PAA x (N, w) uint8 SAX
--> (Q, N) f32 squared PAA-to-iSAX lower bounds. The TPU kernel wanted the
-SAX transposed to (w, N) for its lanes; this one reads the index's (N, w)
-rows as they are.
+One templated CUDA kernel, three entries, each with its wrapper and its own
+launch count:
 
-Bound on the H100: the (Q, N) f32 output it writes and the 6w + 1 fp32
-operations per (query, row) pair land within 15% of each other at the
-paper's shapes (w = 16); ``chip_smoke.py`` computes both. The kernel gives
-one thread to each SAX row, which loads its w symbols with vector loads,
-keeps the row's region bounds in registers and loops over the queries
-staged in shared memory; every store is coalesced. Multiplies and adds are
-rounded separately (no fused multiply-add), so the result is bit-identical
-to ``ref.lower_bound_sq_batch``: candidate order depends on exact ties.
+  * :func:`lower_bound_sq_batch_cuda` replaces the TPU kernel
+    ``repro/kernels/lower_bound.py::_lb_kernel_batch``
+    (``lower_bound_sq_batch_pallas``): (Q, w) f32 query PAA x (N, w) uint8
+    SAX -> (Q, N) f32 squared PAA-to-iSAX lower bounds;
+  * :func:`lower_bound_sq_cuda` replaces ``_lb_kernel_rows`` and
+    ``_lb_kernel_cols`` (``lower_bound_sq_pallas``): one (w,) query;
+  * :func:`lower_bound_sq_multi_cuda` replaces ``_lb_kernel_batch_masked``
+    (``lower_bound_sq_multi_pallas``): the batch form over a packed
+    multi-component buffer, +inf on every row outside ``block_len``.
+
+The TPU kernels wanted the SAX transposed to (w, N) for their lanes; these
+read the index's (N, w) rows as they are.
+
+Bound on the H100: for the batch forms, the (Q, N) f32 output they write and
+the 6w + 1 fp32 operations per (query, row) pair land within 15% of each
+other at the paper's shapes (w = 16); the single-query form is bound by
+the bytes it reads and writes. ``chip_smoke.py`` computes both. The kernel
+gives one thread to each SAX row, which loads its w symbols with vector
+loads, keeps the row's region bounds in registers and loops over the
+queries staged in shared memory; every store is coalesced. Multiplies and
+adds are rounded separately (no fused multiply-add), so every result is
+bit-identical to its plain version in ``ref.py``: candidate order depends
+on exact ties.
 """
 
 from __future__ import annotations
@@ -22,9 +34,23 @@ import torch
 
 from repro_torch.kernels import _build
 
-launches = 0  # kernel launches since the caller last set it to 0
+# Kernel launches since the caller last set them to 0, one count per entry.
+launches = 0  # lower_bound_sq_batch
+single_launches = 0  # lower_bound_sq
+multi_launches = 0  # lower_bound_sq_multi
 
 SUPPORTED_SEGMENTS = (4, 8, 16, 32)
+
+
+def _check_sax(sax: torch.Tensor, w: int, bp_padded: torch.Tensor) -> None:
+    if sax.shape[1] != w:
+        raise ValueError(f"query PAA has w={w}, SAX rows have {sax.shape[1]}")
+    if w not in SUPPORTED_SEGMENTS:
+        raise ValueError(f"w={w} not in {SUPPORTED_SEGMENTS}")
+    if sax.data_ptr() % min(w, 16):
+        raise ValueError("sax rows must be aligned for vector loads")
+    if bp_padded.numel() > 257:
+        raise ValueError("at most 257 padded breakpoints (uint8 symbols)")
 
 
 def lower_bound_sq_batch_cuda(query_paa: torch.Tensor, sax: torch.Tensor,
@@ -37,15 +63,8 @@ def lower_bound_sq_batch_cuda(query_paa: torch.Tensor, sax: torch.Tensor,
     _build.require(bp_padded, "bp_padded", torch.float32, 1)
     _build.same_device(query_paa, sax, bp_padded)
     n_q, w = query_paa.shape
+    _check_sax(sax, w, bp_padded)
     n = sax.shape[0]
-    if sax.shape[1] != w:
-        raise ValueError(f"query PAA has w={w}, SAX rows have {sax.shape[1]}")
-    if w not in SUPPORTED_SEGMENTS:
-        raise ValueError(f"w={w} not in {SUPPORTED_SEGMENTS}")
-    if sax.data_ptr() % min(w, 16):
-        raise ValueError("sax rows must be aligned for vector loads")
-    if bp_padded.numel() > 257:
-        raise ValueError("at most 257 padded breakpoints (uint8 symbols)")
     out = torch.empty((n_q, n), dtype=torch.float32, device=sax.device)
     lib = _build.load()
     err = lib.lower_bound_sq_batch_launch(
@@ -54,4 +73,60 @@ def lower_bound_sq_batch_cuda(query_paa: torch.Tensor, sax: torch.Tensor,
         _build.stream_of(sax))
     _build.check(err, "lower_bound_sq_batch")
     launches += 1
+    return out
+
+
+def lower_bound_sq_cuda(query_paa: torch.Tensor, sax: torch.Tensor,
+                        bp_padded: torch.Tensor,
+                        series_length: int) -> torch.Tensor:
+    """One (w,) query against (N, w) SAX rows; returns (N,) float32 bounds."""
+    global single_launches
+    _build.require(query_paa, "query_paa", torch.float32, 1)
+    _build.require(sax, "sax", torch.uint8, 2)
+    _build.require(bp_padded, "bp_padded", torch.float32, 1)
+    _build.same_device(query_paa, sax, bp_padded)
+    w = query_paa.shape[0]
+    _check_sax(sax, w, bp_padded)
+    n = sax.shape[0]
+    out = torch.empty((n,), dtype=torch.float32, device=sax.device)
+    lib = _build.load()
+    err = lib.lower_bound_sq_launch(
+        query_paa.data_ptr(), sax.data_ptr(), bp_padded.data_ptr(),
+        out.data_ptr(), n, w, bp_padded.numel(), series_length / w,
+        _build.stream_of(sax))
+    _build.check(err, "lower_bound_sq")
+    single_launches += 1
+    return out
+
+
+def lower_bound_sq_multi_cuda(query_paa: torch.Tensor, sax: torch.Tensor,
+                              bp_padded: torch.Tensor, series_length: int,
+                              block_len: torch.Tensor,
+                              block_n: int) -> torch.Tensor:
+    """(Q, w) PAA x (N_pad, w) packed SAX -> (Q, N_pad), +inf off the blocks.
+
+    Row ``r`` is real iff ``r % block_n < block_len[r // block_n]``.
+    """
+    global multi_launches
+    _build.require(query_paa, "query_paa", torch.float32, 2)
+    _build.require(sax, "sax", torch.uint8, 2)
+    _build.require(bp_padded, "bp_padded", torch.float32, 1)
+    _build.require(block_len, "block_len", torch.int32, 1)
+    _build.same_device(query_paa, sax, bp_padded, block_len)
+    n_q, w = query_paa.shape
+    _check_sax(sax, w, bp_padded)
+    n = sax.shape[0]
+    if block_n < 1 or n % block_n:
+        raise ValueError(f"packed N={n} not a multiple of block_n={block_n}")
+    if block_len.shape[0] != n // block_n:
+        raise ValueError(f"block_len has {block_len.shape[0]} entries for "
+                         f"{n // block_n} blocks")
+    out = torch.empty((n_q, n), dtype=torch.float32, device=sax.device)
+    lib = _build.load()
+    err = lib.lower_bound_sq_multi_launch(
+        query_paa.data_ptr(), sax.data_ptr(), bp_padded.data_ptr(),
+        block_len.data_ptr(), out.data_ptr(), n_q, n, w, bp_padded.numel(),
+        block_n, series_length / w, _build.stream_of(sax))
+    _build.check(err, "lower_bound_sq_multi")
+    multi_launches += 1
     return out

@@ -22,8 +22,15 @@ from repro_torch.kernels import lower_bound as _lb
 from repro_torch.kernels import paa_isax as _pi
 from repro_torch.kernels import ref as _ref
 
-KERNELS = {"paa_isax": _pi, "lower_bound_sq_batch": _lb,
-           "euclid_sq": _euclid}
+# name -> (wrapper module, the module attribute that counts its launches)
+KERNELS = {
+    "paa_isax": (_pi, "launches"),
+    "lower_bound_sq_batch": (_lb, "launches"),
+    "lower_bound_sq": (_lb, "single_launches"),
+    "lower_bound_sq_multi": (_lb, "multi_launches"),
+    "euclid_sq": (_euclid, "launches"),
+    "euclid_min": (_euclid, "min_launches"),
+}
 
 
 def _use_kernel(t: torch.Tensor, impl: str) -> bool:
@@ -40,13 +47,13 @@ def _use_kernel(t: torch.Tensor, impl: str) -> bool:
 
 def launch_counts() -> dict:
     """Kernel launches per kernel since :func:`reset_launch_counts`."""
-    return {name: mod.launches for name, mod in KERNELS.items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0."""
-    for mod in KERNELS.values():
-        mod.launches = 0
+    for mod, attr in KERNELS.values():
+        setattr(mod, attr, 0)
 
 
 def lower_bound_sq(
@@ -56,16 +63,21 @@ def lower_bound_sq(
     series_length: int,
     *,
     impl: str = "auto",
+    transposed: bool = False,
 ) -> torch.Tensor:
     """(w,) PAA x (N, w) sax -> (N,) squared lower bounds.
 
-    Plain version only: its kernel (the single-query TPU kernel
-    ``_lb_kernel_rows``/``_lb_kernel_cols``) is not ported yet, and the
-    main path does not call it.
+    ``transposed`` is accepted as the reference's ``ops.lower_bound_sq``
+    accepts it, with the same (N, w) input: the reference transposes the
+    SAX inside, to (w, N), so that candidates fill the TPU's 128-wide lanes.
+    On the card one thread reads one (N, w) row either way, so the flag
+    changes nothing (and the answer is the same in both packages).
     """
-    if impl not in ("auto", "ref"):
-        raise ValueError(f"impl must be 'auto' or 'ref', got {impl!r}")
-    return _ref.lower_bound_sq(query_paa, sax, bp_padded, series_length)
+    del transposed  # a TPU layout choice; one layout serves both here
+    if not _use_kernel(sax, impl):
+        return _ref.lower_bound_sq(query_paa, sax, bp_padded, series_length)
+    return _lb.lower_bound_sq_cuda(
+        query_paa.contiguous(), sax, bp_padded, series_length)
 
 
 def lower_bound_sq_batch(
@@ -82,6 +94,41 @@ def lower_bound_sq_batch(
             query_paa, sax, bp_padded, series_length)
     return _lb.lower_bound_sq_batch_cuda(
         query_paa.contiguous(), sax, bp_padded, series_length)
+
+
+def lower_bound_sq_multi(
+    query_paa: torch.Tensor,
+    sax: torch.Tensor,
+    bp_padded: torch.Tensor,
+    series_length: int,
+    block_len: torch.Tensor,
+    *,
+    impl: str = "auto",
+    block_n: int = 128,
+) -> torch.Tensor:
+    """(Q, w) PAA x (N_pad, w) PACKED multi-component sax -> (Q, N_pad).
+
+    ``sax`` concatenates every component's leaf-sorted rows, each padded
+    to a ``block_n`` multiple (``core.search.pack_components``), and
+    ``block_len[j]`` counts the real rows of block ``j``. Every other row
+    (component pads, dead tail blocks) comes back +inf, so no selection
+    can pick one. ``block_n`` is the layout the buffer was packed with.
+    """
+    n = sax.shape[0]
+    if n % block_n:
+        raise ValueError(f"packed N={n} not a multiple of block_n={block_n}")
+    if block_len.shape[0] != n // block_n:
+        raise ValueError(
+            f"block_len has {block_len.shape[0]} entries for "
+            f"{n // block_n} blocks")
+    if not _use_kernel(sax, impl):
+        lanes = torch.arange(block_n, dtype=torch.int32, device=sax.device)
+        valid = (lanes[None, :] < block_len.to(torch.int32)[:, None])
+        return _ref.lower_bound_sq_batch_multi(
+            query_paa, sax, bp_padded, series_length, valid.reshape(-1))
+    return _lb.lower_bound_sq_multi_cuda(
+        query_paa.contiguous(), sax, bp_padded, series_length,
+        block_len.to(torch.int32).contiguous(), block_n)
 
 
 def paa_isax(
@@ -133,3 +180,19 @@ def euclid_sq(
     ident = torch.arange(data.shape[0], dtype=torch.int32, device=data.device)
     return _euclid.euclid_sq_gather_cuda(
         query.reshape(1, -1).contiguous(), data, ident)[0]
+
+
+def euclid_min(
+    query: torch.Tensor,
+    data: torch.Tensor,
+    *,
+    impl: str = "auto",
+) -> tuple:
+    """(n,) x (B, n) -> (min squared distance, int32 argmin), first row on ties.
+
+    The brute-force scan: on the card the (B,) distances are never
+    written to device memory.
+    """
+    if not _use_kernel(data, impl):
+        return _ref.euclid_min(query, data)
+    return _euclid.euclid_min_cuda(query.contiguous(), data)

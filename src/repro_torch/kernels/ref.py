@@ -4,11 +4,12 @@ Counterpart of ``repro/kernels/ref.py``. Each function is the semantic
 ground truth its CUDA kernel is held against (on the card by
 ``chip_smoke.py`` and the card-marked tests) and the path ``ops.py`` takes
 for a tensor that lies on the CPU. Each repeats its kernel's arithmetic in
-the same order where the kernel promises bitwise results (``paa_isax``,
-``lower_bound_sq_batch``). Every sum over the last axis uses
+the same order where the kernel promises bitwise results (``paa_isax``
+and the three lower bounds). Every sum over the last axis uses
 ``isax.sum_last``, the reference's order, so on the CPU these functions
 match the JAX package's plain versions bit for bit; the ``euclid_sq``
-kernel sums in another order and is held to them with a tolerance.
+and ``euclid_min`` kernels sum in another order and are held to them with
+a tolerance.
 """
 
 from __future__ import annotations
@@ -62,6 +63,23 @@ def lower_bound_sq_batch(
     return (series_length / w) * acc
 
 
+def lower_bound_sq_batch_multi(
+    query_paa: torch.Tensor,
+    sax: torch.Tensor,
+    bp_padded: torch.Tensor,
+    series_length: int,
+    valid: torch.Tensor,
+) -> torch.Tensor:
+    """(Q, w) PAA batch x (N_pad, w) packed sax -> (Q, N_pad) lower bounds.
+
+    The packed multi-component buffer (``core.search.pack_components``);
+    ``valid`` is the (N_pad,) bool row mask. Pad rows come back +inf, so
+    no selection can pick them.
+    """
+    lb = lower_bound_sq_batch(query_paa, sax, bp_padded, series_length)
+    return torch.where(valid[None, :], lb, float("inf"))
+
+
 def paa_isax(
     series: torch.Tensor,
     segments: int,
@@ -102,3 +120,14 @@ def euclid_sq_gather(
     pos = positions.to(torch.int64).clamp(0, raw.shape[0] - 1)
     d = raw[pos] - queries[:, None, :]  # (Q, R, n)
     return isax.sum_last(d * d)
+
+
+def euclid_min(query: torch.Tensor, data: torch.Tensor) -> tuple:
+    """(n,) query x (B, n) data -> (min squared distance, int32 argmin).
+
+    The first index wins ties, as ``jnp.argmin`` (and ``torch.argmin``)
+    does.
+    """
+    d = euclid_sq(query, data)
+    i = torch.argmin(d)
+    return d[i], i.to(torch.int32)

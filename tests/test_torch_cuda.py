@@ -1,8 +1,11 @@
 """The CUDA kernels and the engine on the card (marked ``cuda``).
 
 Each kernel is held against its plain version (``kernels/ref.py``) on the
-same CUDA tensors: ``paa_isax`` and ``lower_bound_sq_batch`` bit for bit,
-``euclid_sq`` within 1e-5 relative (it sums in another order). Whether a
+same CUDA tensors: ``paa_isax`` and the three lower bounds bit for bit,
+``euclid_sq`` and ``euclid_min`` within 1e-5 relative (they sum in another
+order; ``euclid_min``'s row is the plain argmin or a row at a distance
+within 1e-5 of it). The engines on the card are held against the same
+engines on the CPU. Whether a
 card is present is decided inside the ``cuda_device`` fixture, so every
 worker collects the same tests; without a card they skip with a reason.
 This file imports no JAX, so it runs where the port runs:
@@ -80,6 +83,7 @@ def test_cuda_engine_matches_cpu_engine(cuda_device):
 
     raw = random_walk(6000, 128, seed=101)
     queries = random_walk(8, 128, seed=102)
+    tops.reset_launch_counts()
     on_card = build_index(raw, device=cuda_device)
     on_cpu = build_index(raw, device="cpu")
     assert torch.equal(on_card.sax.cpu(), on_cpu.sax)
@@ -91,8 +95,9 @@ def test_cuda_engine_matches_cpu_engine(cuda_device):
         _, _, ach = knn_batch_tiered(on_card, queries, Tier.epsilon(0.1), k=k,
                                      round_size=256)
         assert np.all(ach <= 0.1 + 1e-6)
-    counts = tops.launch_counts()
-    assert all(c > 0 for c in counts.values()), counts
+    counts = tops.launch_counts()  # the main path's three kernels
+    for name in ("paa_isax", "lower_bound_sq_batch", "euclid_sq"):
+        assert counts[name] > 0, counts
 
 
 @pytest.mark.cuda
@@ -108,3 +113,162 @@ def test_cuda_wrappers_reject_bad_input(cuda_device):
         tops.paa_isax(torch.zeros((4, 64), dtype=torch.float64,
                                   device=cuda_device),
                       tx.gaussian_breakpoints(256, cuda_device), 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [8, 16])
+def test_cuda_lower_bound_single_bitwise(cuda_device, w):
+    z = tx.znorm(_t(random_walk(5001, 256, seed=111))).to(cuda_device)
+    q = tx.znorm(_t(random_walk(1, 256, seed=112))).to(cuda_device)[0]
+    sax, _ = tx.convert_to_sax(z, w, 256, normalize=False)
+    qp = tx.paa(q, w)
+    bpp = tx.padded_breakpoints(256, cuda_device)
+    want = tops.lower_bound_sq(qp, sax, bpp, 256, impl="ref")
+    for transposed in (False, True):
+        got = tops.lower_bound_sq(qp, sax, bpp, 256, transposed=transposed)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+def _packed_on(dev, w):
+    # Three components of 300, 77 and 130 rows in blocks of 128 (pad rows
+    # between them) and a dead tail block (block_len == 0).
+    sizes, block = (300, 77, 130), 128
+    z = tx.znorm(_t(random_walk(sum(sizes), 256, seed=121))).to(dev)
+    sax, _ = tx.convert_to_sax(z, w, 256, normalize=False)
+    parts, lens, start = [], [], 0
+    for m in sizes:
+        pad = (-m) % block
+        parts += [sax[start:start + m],
+                  torch.zeros((pad, w), dtype=torch.uint8, device=dev)]
+        blk = [block] * ((m + pad) // block)
+        blk[-1] = block - pad
+        lens += blk
+        start += m
+    parts.append(torch.full((block, w), 7, dtype=torch.uint8, device=dev))
+    lens.append(0)
+    return (torch.cat(parts),
+            torch.tensor(lens, dtype=torch.int32, device=dev), block)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [8, 16])
+def test_cuda_lower_bound_multi_bitwise(cuda_device, w):
+    sax, block_len, block = _packed_on(cuda_device, w)
+    q = tx.znorm(_t(random_walk(70, 256, seed=122))).to(cuda_device)
+    qp = tx.paa(q, w)
+    bpp = tx.padded_breakpoints(256, cuda_device)
+    got = tops.lower_bound_sq_multi(qp, sax, bpp, 256, block_len,
+                                    block_n=block)
+    want = tops.lower_bound_sq_multi(qp, sax, bpp, 256, block_len,
+                                     block_n=block, impl="ref")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    real = (torch.arange(block, device=cuda_device)[None, :]
+            < block_len[:, None]).reshape(-1)
+    assert torch.isinf(got[:, ~real]).all() and torch.isfinite(got[:, real]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n", [(70001, 64), (5000, 256), (3000, 100)])
+def test_cuda_euclid_min_first_index_on_ties(cuda_device, rows, n):
+    # 70001 rows outgrow one pass of the grid (its blocks stride); n = 100
+    # takes the scalar-load path.
+    data = _t(random_walk(rows, n, seed=131)).to(cuda_device)
+    data[rows - 5] = data[rows // 3]  # an exact tie of the nearest row
+    q = data[rows // 3] + 0.01
+    d, i = tops.euclid_min(q, data)
+    pd, pi = tops.euclid_min(q, data, impl="ref")
+    torch.cuda.synchronize()
+    assert i.dtype == torch.int32 and int(i) == int(pi) == rows // 3
+    torch.testing.assert_close(d, pd, rtol=1e-5, atol=1e-6)
+    tops.reset_launch_counts()
+    tops.euclid_min(q, data)
+    assert tops.launch_counts()["euclid_min"] == 1
+
+
+@pytest.mark.cuda
+def test_cuda_new_wrappers_reject_bad_input(cuda_device):
+    from repro_torch.kernels import euclidean, lower_bound
+
+    bpp = tx.padded_breakpoints(256, cuda_device)
+    sax = torch.zeros((256, 16), dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        lower_bound.lower_bound_sq_cuda(
+            torch.zeros(16, dtype=torch.float64, device=cuda_device), sax,
+            bpp, 256)
+    with pytest.raises(ValueError, match="block_len has"):
+        lower_bound.lower_bound_sq_multi_cuda(
+            torch.zeros((2, 16), device=cuda_device), sax, bpp, 256,
+            torch.ones(3, dtype=torch.int32, device=cuda_device), 128)
+    with pytest.raises(ValueError, match="int32"):
+        lower_bound.lower_bound_sq_multi_cuda(
+            torch.zeros((2, 16), device=cuda_device), sax, bpp, 256,
+            torch.ones(2, dtype=torch.int64, device=cuda_device), 128)
+    data = torch.zeros((10, 64), device=cuda_device)
+    with pytest.raises(ValueError, match="n=32"):
+        euclidean.euclid_min_cuda(torch.zeros(32, device=cuda_device), data)
+    with pytest.raises(ValueError, match="contiguous"):
+        euclidean.euclid_min_cuda(torch.zeros(10, device=cuda_device),
+                                  data[:, :10])
+
+
+@pytest.mark.cuda
+def test_cuda_baselines_match_cpu(cuda_device):
+    from repro_torch.core import SearchConfig, build_index
+    from repro_torch.core.search import (brute_force, exact_search_single,
+                                         nb_exact_search)
+
+    raw = random_walk(6000, 128, seed=141)
+    queries = random_walk(4, 128, seed=142)
+    on_card = build_index(raw, device=cuda_device)
+    on_cpu = build_index(raw, device="cpu")
+    cfg = SearchConfig(round_size=256, workers=4)
+    tops.reset_launch_counts()
+    for q in queries:
+        for fn in (exact_search_single, nb_exact_search):
+            a, b = fn(on_card, q, cfg), fn(on_cpu, q, cfg)
+            assert int(a.position) == int(b.position)
+            assert a.rounds == b.rounds
+            torch.testing.assert_close(a.dist_sq.cpu(), b.dist_sq,
+                                       rtol=1e-5, atol=1e-5)
+        a, b = brute_force(on_card, q), brute_force(on_cpu, q)
+        assert int(a.position) == int(b.position)
+        torch.testing.assert_close(a.dist_sq.cpu(), b.dist_sq, rtol=1e-5,
+                                   atol=1e-5)
+    counts = tops.launch_counts()
+    assert counts["lower_bound_sq"] == 8 and counts["euclid_min"] == 4
+    assert counts["euclid_sq"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_packed_engine_matches_cpu(cuda_device):
+    from repro_torch.core import Tier, build_index
+    from repro_torch.core.search import (exact_knn_batch,
+                                         exact_knn_batch_packed,
+                                         knn_batch_packed_tiered,
+                                         pack_components, packed_seed)
+
+    raw = random_walk(6000, 128, seed=151)
+    queries = random_walk(8, 128, seed=152)
+    cuts = (0, 2900, 4500, 6000)  # no size a multiple of the block
+    answers = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        comps = [(build_index(raw[a:b], device=dev), a)
+                 for a, b in zip(cuts[:-1], cuts[1:])]
+        packed = pack_components(comps)
+        tops.reset_launch_counts()
+        d, p = exact_knn_batch_packed(packed, queries, k=8, round_size=256)
+        de, pe, ach = knn_batch_packed_tiered(
+            packed, queries, Tier.epsilon(0.1), k=8, round_size=256,
+            seed=packed_seed(comps, queries))
+        answers[dev.type] = (d.cpu(), p.cpu(), tops.launch_counts())
+        assert (ach <= 0.1 + 1e-6).all()
+        assert torch.all(de.sqrt() <= 1.1 * d.sqrt() * (1 + 1e-5))
+    (d, p, counts), (d0, p0, _) = answers["cuda"], answers["cpu"]
+    assert torch.equal(p, p0)
+    torch.testing.assert_close(d, d0, rtol=1e-5, atol=1e-5)
+    assert counts["lower_bound_sq_multi"] == 2 and counts["euclid_sq"] > 0
+    single = build_index(raw, device=cuda_device)
+    d1, p1 = exact_knn_batch(single, queries, k=8, round_size=256)
+    assert torch.equal(p1.cpu(), p) and torch.equal(d1.cpu(), d)

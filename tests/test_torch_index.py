@@ -114,3 +114,31 @@ def test_empty_index_and_devices():
             tindex.empty_index(64)
     with pytest.raises(ValueError, match="device"):
         tindex.build_index(np.zeros((4, 64), np.float32), device="meta")
+
+
+@pytest.mark.parametrize("num_shards", [1, 3, 7])
+def test_build_sharded_index_parity(num_shards):
+    # 1000 rows in 3 or 7 shards: sizes differ by one (S does not divide N).
+    raw = datagen.random_walk(1000, 64, seed=23)
+    j = j_build_index(jnp.asarray(raw))
+    t = convert.index_from_arrays(
+        np.asarray(j.sax), np.asarray(j.pos), np.asarray(j.bucket_offsets),
+        np.asarray(j.raw), j.series_length, j.segments, j.cardinality,
+        device="cpu")
+    sj = jindex.build_sharded_index(j, num_shards)
+    st = tindex.build_sharded_index(t, num_shards)
+    assert st.offsets == sj.offsets and st.num_shards == num_shards
+    assert st.num_series == 1000
+    for a, b, lo, hi in zip(sj.shards, st.shards, st.offsets[:-1],
+                            st.offsets[1:]):
+        for name in ("sax", "pos", "bucket_offsets", "raw"):
+            got, want = getattr(b, name).numpy(), np.asarray(getattr(a, name))
+            assert got.dtype == want.dtype, name
+            np.testing.assert_array_equal(got, want)
+        # An independent build over the slice gives the same shard.
+        alone = tindex.build_index(t.raw[lo:hi], normalize=False,
+                                   device="cpu")
+        for name in ("sax", "pos", "bucket_offsets"):
+            assert torch.equal(getattr(b, name), getattr(alone, name)), name
+    with pytest.raises(ValueError, match="num_shards"):
+        tindex.build_sharded_index(t, 1001)

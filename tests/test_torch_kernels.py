@@ -3,12 +3,13 @@
 On the CPU the port's ``ops`` take the plain versions (``kernels/ref.py``);
 they are held bit for bit against the JAX package's plain versions
 (``impl="ref"``) and its Pallas kernels run in interpret mode
-(``impl="pallas"``, tiny shapes). ``lower_bound_sq_batch`` and ``paa_isax``
-are bitwise; ``euclid_sq`` (a sum of 256 values) is bitwise against the
-reference's plain version where the host's XLA sums like the port
+(``impl="pallas"``, tiny shapes). The three lower bounds and ``paa_isax``
+are bitwise (pad rows and dead blocks of the packed form included);
+``euclid_sq`` and ``euclid_min`` (sums of 256 values) are bitwise against
+the reference's plain version where the host's XLA sums like the port
 (``reference_sums_like_port``), else equal to rounding, and within 1e-6
 relative of the Pallas kernel, whose interpret-mode sum may take another
-order.
+order; ``euclid_min``'s index is always the reference's.
 
 The CUDA kernels themselves are held against their plain versions on the
 card by ``tests/test_torch_cuda.py``.
@@ -91,6 +92,8 @@ def test_lower_bound_batch_bitwise(impl, n_q, rows, w):
 
 
 def test_lower_bound_single_is_plain_only():
+    # On the CPU the single-query op is its plain version; the transposed
+    # flag (a TPU lane layout) changes nothing in the port.
     z = _znormed(500, 256, seed=21)
     q = _znormed(1, 256, seed=22)[0]
     sax = np.asarray(jx.convert_to_sax(jnp.asarray(z), normalize=False)[0])
@@ -98,8 +101,102 @@ def test_lower_bound_single_is_plain_only():
     want = np.asarray(jops.lower_bound_sq(
         jnp.asarray(qp), jnp.asarray(sax), jx.padded_breakpoints(), 256,
         impl="ref"))
-    got = tops.lower_bound_sq(_t(qp), _t(sax), tx.padded_breakpoints(), 256)
-    np.testing.assert_array_equal(got.numpy(), want)
+    for transposed in (False, True):
+        got = tops.lower_bound_sq(_t(qp), _t(sax), tx.padded_breakpoints(),
+                                  256, transposed=transposed)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("rows,w", [(1000, 16), (700, 8)])
+def test_lower_bound_single_vs_pallas(transposed, rows, w):
+    # The interpret-mode TPU kernels (rows and cols layouts), N not a
+    # multiple of their block: the reference pads and slices. Like the
+    # batch kernel, they sit up to 3 ulp from the reference's plain
+    # version (in 29% of the rows here), which the port matches bit for
+    # bit (test above); the port is held to that same 3-ulp gap.
+    z = _znormed(rows, 256, seed=rows + w)
+    q = _znormed(1, 256, seed=rows + w + 1)[0]
+    sax = np.asarray(jx.convert_to_sax(jnp.asarray(z), w, normalize=False)[0])
+    qp = np.asarray(jx.paa(jnp.asarray(q), w))
+    want = np.asarray(jops.lower_bound_sq(
+        jnp.asarray(qp), jnp.asarray(sax), jx.padded_breakpoints(), 256,
+        impl="pallas", block_n=256, transposed=transposed))
+    got = tops.lower_bound_sq(_t(qp), _t(sax), tx.padded_breakpoints(), 256,
+                              transposed=transposed).numpy()
+    ulps = np.abs(got.view(np.int32).astype(np.int64)
+                  - want.view(np.int32).astype(np.int64))
+    assert ulps.max() <= 3
+
+
+def _packed_case(n_q, w):
+    """A packed buffer of three components (pads between them) + 2 dead blocks."""
+    sizes, block = (200, 77, 130), 128
+    z = _znormed(sum(sizes), 256, seed=sum(sizes) + w)
+    sax = np.asarray(jx.convert_to_sax(jnp.asarray(z), w, normalize=False)[0])
+    parts, lens, start = [], [], 0
+    for m in sizes:
+        pad = (-m) % block
+        parts += [sax[start:start + m], np.zeros((pad, w), np.uint8)]
+        full = np.full(((m + pad) // block,), block, np.int32)
+        full[-1] = block - pad
+        lens.append(full)
+        start += m
+    parts.append(np.full((2 * block, w), 255, np.uint8))  # dead tail blocks
+    lens.append(np.zeros((2,), np.int32))
+    q = _znormed(n_q, 256, seed=w)
+    qp = np.asarray(jx.paa(jnp.asarray(q), w))
+    return qp, np.concatenate(parts), np.concatenate(lens), block
+
+
+@pytest.mark.parametrize("impl", ["ref", "pallas"])
+@pytest.mark.parametrize("n_q,w", [(5, 16), (8, 8)])
+def test_lower_bound_multi_bitwise_incl_pads_and_dead_blocks(impl, n_q, w):
+    qp, sax, block_len, block = _packed_case(n_q, w)
+    want = np.asarray(jops.lower_bound_sq_multi(
+        jnp.asarray(qp), jnp.asarray(sax), jx.padded_breakpoints(), 256,
+        jnp.asarray(block_len), impl=impl, block_n=block))
+    got = tops.lower_bound_sq_multi(_t(qp), _t(sax), tx.padded_breakpoints(),
+                                    256, _t(block_len), block_n=block).numpy()
+    valid = (np.arange(block)[None, :] < block_len[:, None]).reshape(-1)
+    assert np.all(np.isinf(got[:, ~valid])) and np.all(np.isfinite(
+        got[:, valid]))
+    if impl == "ref":
+        np.testing.assert_array_equal(got, want)
+    else:
+        # Real rows: the same 3-ulp gap as the batch kernel (see above);
+        # pad rows and dead blocks: +inf in both.
+        np.testing.assert_array_equal(np.isinf(got), np.isinf(want))
+        ulps = np.abs(got[:, valid].view(np.int32).astype(np.int64)
+                      - want[:, valid].view(np.int32).astype(np.int64))
+        assert ulps.max() <= 3
+
+
+def test_lower_bound_multi_refuses_bad_layouts():
+    qp, sax, block_len, block = _packed_case(2, 16)
+    bpp = tx.padded_breakpoints()
+    with pytest.raises(ValueError, match="multiple of block_n"):
+        tops.lower_bound_sq_multi(_t(qp), _t(sax[:-1]), bpp, 256,
+                                  _t(block_len), block_n=block)
+    with pytest.raises(ValueError, match="block_len has"):
+        tops.lower_bound_sq_multi(_t(qp), _t(sax), bpp, 256,
+                                  _t(block_len[:-1]), block_n=block)
+
+
+@pytest.mark.parametrize("impl", ["ref", "pallas"])
+@pytest.mark.parametrize("rows", [300, 512])
+def test_euclid_min_matches_reference(impl, rows):
+    data = np.array(_znormed(rows, 256, seed=rows + 33))
+    data[rows - 40] = data[17]  # an exact tie: the first row must win
+    q = data[17] + np.float32(0.01)
+    want_d, want_i = jops.euclid_min(jnp.asarray(q), jnp.asarray(data),
+                                     impl=impl, block_b=128)
+    got_d, got_i = tops.euclid_min(_t(q), _t(data))
+    assert got_i.dtype == torch.int32 and int(got_i) == int(want_i) == 17
+    if impl == "ref":
+        assert_float_parity(got_d.numpy(), np.asarray(want_d))
+    else:
+        np.testing.assert_allclose(float(got_d), float(want_d), rtol=1e-6)
 
 
 @pytest.mark.parametrize("impl", ["ref", "pallas"])
@@ -143,8 +240,12 @@ def test_dispatch_rules():
     tops.reset_launch_counts()
     tops.paa_isax(z, bp, 16)
     tops.euclid_sq(z[0], z)
+    tops.euclid_min(z[0], z)
+    tops.lower_bound_sq(z[0, :16], torch.zeros((4, 16), dtype=torch.uint8),
+                        tx.padded_breakpoints(), 64)
     assert tops.launch_counts() == {
-        "paa_isax": 0, "lower_bound_sq_batch": 0, "euclid_sq": 0}
+        "paa_isax": 0, "lower_bound_sq_batch": 0, "lower_bound_sq": 0,
+        "lower_bound_sq_multi": 0, "euclid_sq": 0, "euclid_min": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -159,6 +260,16 @@ def test_kernel_wrappers_refuse_cpu_tensors():
             tx.padded_breakpoints(), 64)
     with pytest.raises(ValueError, match="CUDA"):
         euclidean.euclid_sq_gather_cuda(z, z, torch.zeros(4, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        lower_bound.lower_bound_sq_cuda(
+            z[0, :16].contiguous(), torch.zeros((4, 16), dtype=torch.uint8),
+            tx.padded_breakpoints(), 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        lower_bound.lower_bound_sq_multi_cuda(
+            z[:, :16].contiguous(), torch.zeros((128, 16), dtype=torch.uint8),
+            tx.padded_breakpoints(), 64, torch.ones(1, dtype=torch.int32), 128)
+    with pytest.raises(ValueError, match="CUDA"):
+        euclidean.euclid_min_cuda(z[0].contiguous(), z)
 
 
 def test_build_sources_exist_and_name_their_entries():
