@@ -52,6 +52,8 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -202,6 +204,137 @@ def phase_device() -> tuple:
     return name, count, smi
 
 
+# A lower-bound kernel's mangled name: lb_kernel<w, form> with an int form
+# (0 batch, 1 masked) or lb_single_kernel<w>; or, in builds before the
+# forms had kernels of their own, lb_kernel<w, masked> with a bool.
+LB_NAME = re.compile(
+    r"lb_(?:kernelILi(\d+)EL[bi](\d)E|single_kernelILi(\d+)E)")
+
+
+def lb_instance(mangled: str):
+    """(``lb_kernel<w=16, batch>``, w) for a mangled lower-bound kernel,
+    else (None, 0)."""
+    m = LB_NAME.search(mangled)
+    if m is None:
+        return None, 0
+    if m.group(3):
+        return f"lb_kernel<w={m.group(3)}, single>", int(m.group(3))
+    form = ("batch", "masked")[int(m.group(2))]
+    return f"lb_kernel<w={m.group(1)}, {form}>", int(m.group(1))
+
+
+def ptxas_entries(build_log: str) -> list:
+    """(entry, registers, spill stores, spill loads, static smem bytes) for
+    each entry function in the ``-Xptxas -v`` output of a build."""
+    rows, cur = [], None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = [m.group(1), None, 0, 0, 0]
+            rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur[2], cur[3] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur[1] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur[4] = int(sm.group(1)) if sm else 0
+    return [tuple(r) for r in rows]
+
+
+def cuobjdump_path():
+    """``cuobjdump`` beside ``nvcc``, or on PATH; None if there is none."""
+    from repro_torch.kernels import _build
+
+    cand = pathlib.Path(_build.nvcc_path()).parent / "cuobjdump"
+    return str(cand) if cand.is_file() else shutil.which("cuobjdump")
+
+
+def sass_functions(so_path) -> dict:
+    """Mangled name -> [(address, opcode, text)] from ``cuobjdump -sass``,
+    or {} without ``cuobjdump``."""
+    tool = cuobjdump_path()
+    if tool is None:
+        return {}
+    text = subprocess.run([tool, "-sass", str(so_path)], check=True,
+                          capture_output=True, text=True, timeout=300).stdout
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m and cur is not None:
+            body = re.sub(r"^@!?U?P[T\d]+\s+", "", m.group(2))
+            cur.append((int(m.group(1), 16), body.split()[0], body))
+    return funcs
+
+
+def hot_loop(insts: list, w: int):
+    """The inner loop of a lower-bound kernel's SASS: of the innermost
+    loops (backward branches whose range holds no other), the one with the
+    fewest instructions per (query, row) pair. Each pair takes w + 1 FMULs
+    (w squares and the scale), so a loop's pairs are its FMULs / (w + 1).
+    Returns (instructions, pairs, per pair, per segment, opcode counts), or
+    None where no loop holds a pair (the single-query kernel loops over no
+    queries: each thread computes one pair)."""
+    loops = []
+    for addr, op, body in insts:
+        m = re.search(r"BRA\S*\s+(?:`\()?(0x[0-9a-f]+)", body)
+        if op.startswith("BRA") and m and int(m.group(1), 16) < addr:
+            loops.append((int(m.group(1), 16), addr))
+    inner = [(a, b) for a, b in loops if not any(
+        a <= c and d <= b and (c, d) != (a, b) for c, d in loops)]
+    best = None
+    for a, b in inner:
+        counts = {}
+        for addr, op, _ in insts:
+            if a <= addr <= b:
+                counts[op.split(".")[0]] = counts.get(op.split(".")[0], 0) + 1
+        pairs = counts.get("FMUL", 0) / (w + 1)
+        n = sum(counts.values())
+        if pairs >= 1 and (best is None or n / pairs < best[2]):
+            best = (n, pairs, n / pairs, n / pairs / w, counts)
+    return best
+
+
+def report_lb_code(tag: str, build_log: str, so_path) -> dict:
+    """Print each lower-bound instantiation's registers, spills and shared
+    memory, and (with ``cuobjdump``) its inner loop's instruction count;
+    returns the instructions per (query, row) pair by instantiation."""
+    per_pair = {}
+    for entry, regs, st, ld, smem in ptxas_entries(build_log):
+        inst, _ = lb_instance(entry)
+        if inst:
+            log(f"[{tag}] {inst}: {regs} registers, spill stores {st} B, "
+                f"spill loads {ld} B, static smem {smem} B")
+    funcs = sass_functions(so_path)
+    if not funcs:
+        log(f"[{tag}] cuobjdump not found: no SASS instruction counts")
+    for entry, insts in sorted(funcs.items()):
+        inst, w = lb_instance(entry)
+        if inst is None:
+            continue
+        loop = hot_loop(insts, w)
+        if loop is None:
+            log(f"[{tag}] {inst} SASS: no loop over queries, "
+                f"{len(insts)} instructions in all")
+            continue
+        n, pairs, per_pair[inst], per_seg, counts = loop
+        top = ", ".join(f"{k} {v}" for k, v in sorted(
+            counts.items(), key=lambda kv: -kv[1])[:8])
+        log(f"[{tag}] {inst} SASS inner loop: {n} instructions for "
+            f"{pairs:g} (query, row) pairs: {per_pair[inst]:.2f} a pair, "
+            f"{per_seg:.3f} a segment; {top}")
+    return per_pair
+
+
 def phase_build() -> None:
     from repro_torch.kernels import _build
 
@@ -210,8 +343,10 @@ def phase_build() -> None:
     log(f"[build] kernels ready in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {_build.build_seconds:.2f} s)")
     for line in _build.build_log.splitlines():
-        if "ptxas info" in line or line.startswith("---"):
+        if ("ptxas info" in line or "spill" in line
+                or line.startswith("---")):
             log(f"[build]   {line.strip()}")
+    report_lb_code("build", _build.build_log, _build.library_path)
 
 
 def phase_quickstart(dev) -> None:

@@ -33,10 +33,11 @@ NVCC_FLAGS = (ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 _lock = threading.Lock()
 _lib = None
-# What the last build printed (ptxas register/shared-memory lines) and how
-# long it took; chip_smoke.py reports both.
+# What the last build printed (ptxas register/shared-memory lines), how
+# long it took, and the loaded library's path; chip_smoke.py reports them.
 build_log = ""
 build_seconds = 0.0
+library_path = None
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -116,17 +117,18 @@ def _compile(nvcc: str, tag: str) -> pathlib.Path:
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if link.returncode:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+    build_log = "\n".join(logs)
+    so.with_suffix(".log").write_text(build_log)
     os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
     for obj in objs:
         obj.unlink()
-    build_log = "\n".join(logs)
     build_seconds = time.perf_counter() - t0
     return so
 
 
 def load() -> ctypes.CDLL:
     """Build (once per source state) and load the kernel library."""
-    global _lib
+    global _lib, library_path, build_log
     with _lock:
         if _lib is not None:
             return _lib
@@ -134,7 +136,10 @@ def load() -> ctypes.CDLL:
         so = BUILD_DIR / f"libparis_kernels-{tag}.so"
         if not so.is_file():
             so = _compile(nvcc_path(), tag)
+        elif so.with_suffix(".log").is_file():  # built earlier: its log
+            build_log = so.with_suffix(".log").read_text()
         lib = ctypes.CDLL(str(so))
+        library_path = so
         for fn_name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, fn_name)
             fn.argtypes = list(argtypes)

@@ -19,13 +19,18 @@ read the index's (N, w) rows as they are.
 Bound on the H100: for the batch forms, the (Q, N) f32 output they write and
 the 6w + 1 fp32 operations per (query, row) pair land within 15% of each
 other at the paper's shapes (w = 16); the single-query form is bound by
-the bytes it reads and writes. ``chip_smoke.py`` computes both. The kernel
-gives one thread to each SAX row, which loads its w symbols with vector
-loads, keeps the row's region bounds in registers and loops over the
-queries staged in shared memory; every store is coalesced. Multiplies and
-adds are rounded separately (no fused multiply-add), so every result is
-bit-identical to its plain version in ``ref.py``: candidate order depends
-on exact ties.
+the bytes it reads and writes. ``chip_smoke.py`` computes both. None of
+the operations can be fused (multiplies and adds are rounded separately,
+so every result is bit-identical to its plain version in ``ref.py``:
+candidate order depends on exact ties), so the batch forms are bound in
+practice by the rate at which the card issues instructions. Their design
+issues 5 per (query, row, segment): two subtractions, one Hopper DPX
+integer max-with-relu on the float bits for max(q - hi, lo - q, 0), the
+square and the sum. Each thread keeps the region bounds of 4 SAX rows (2
+at w = 32) in registers and loops over the queries staged in shared
+memory, so each query's loads and loop overhead are shared by its rows;
+every store is coalesced. The single-query form runs the same code at one
+row a thread.
 """
 
 from __future__ import annotations

@@ -272,3 +272,71 @@ def test_cuda_packed_engine_matches_cpu(cuda_device):
     single = build_index(raw, device=cuda_device)
     d1, p1 = exact_knn_batch(single, queries, k=8, round_size=256)
     assert torch.equal(p1.cpu(), p) and torch.equal(d1.cpu(), d)
+
+
+# The lower-bound kernel gives each thread 4 rows (2 at w = 32) of a
+# 128-thread block, a tile of 512 rows (256 at w = 32). These N run one
+# below, at and one above both tiles, and a large odd N.
+EDGE_ROWS = (255, 256, 257, 511, 512, 513, 100_003)
+
+
+def _edge_inputs(dev, n_q, rows, w, seed):
+    # SAX rows of every symbol, with 0 and 255 forced on some rows so the
+    # +/-BIG pads bound them; query PAAs on breakpoints, on their float
+    # neighbours, at +/-0.0 and at +/-BIG.
+    rng = np.random.default_rng(seed)
+    bp = tx.padded_breakpoints(256).numpy()
+    pool = np.concatenate([bp, np.nextafter(bp, np.float32(np.inf)),
+                           np.nextafter(bp, np.float32(-np.inf)),
+                           np.float32([0.0, -0.0]),
+                           rng.standard_normal(64).astype(np.float32)])
+    qp = rng.choice(pool, size=(n_q, w)).astype(np.float32)
+    sax = rng.integers(0, 256, size=(rows, w), dtype=np.uint8)
+    sax[::5], sax[2::5] = 0, 255
+    return (_t(qp).to(dev), _t(sax).to(dev),
+            tx.padded_breakpoints(256, dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_q", [1, 63, 64, 65, 130])
+@pytest.mark.parametrize("w", [4, 8, 16, 32])
+def test_cuda_lower_bound_batch_edges_bitwise(cuda_device, w, n_q):
+    for rows in EDGE_ROWS:
+        qp, sax, bpp = _edge_inputs(cuda_device, n_q, rows, w, rows + n_q)
+        got = tops.lower_bound_sq_batch(qp, sax, bpp, 256)
+        want = tops.lower_bound_sq_batch(qp, sax, bpp, 256, impl="ref")
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_q", [1, 63, 64, 65, 130])
+@pytest.mark.parametrize("w", [4, 8, 16, 32])
+def test_cuda_lower_bound_multi_edges_bitwise(cuda_device, w, n_q):
+    # N_pad of 896, 99,968 and 1,300 rows: none a multiple of the tile.
+    rng = np.random.default_rng(1000 * w + n_q)
+    for block, n_blocks in ((128, 7), (128, 781), (100, 13)):
+        lens = rng.choice([0, block, 1, block - 1, block // 2], n_blocks)
+        lens[:3] = (0, block, block // 2)  # dead, full and partial blocks
+        block_len = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+        qp, sax, bpp = _edge_inputs(cuda_device, n_q, block * n_blocks, w,
+                                    block + n_blocks)
+        got = tops.lower_bound_sq_multi(qp, sax, bpp, 256, block_len,
+                                        block_n=block)
+        want = tops.lower_bound_sq_multi(qp, sax, bpp, 256, block_len,
+                                         block_n=block, impl="ref")
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (block, n_blocks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [4, 8, 16, 32])
+def test_cuda_lower_bound_single_edges_bitwise(cuda_device, w):
+    for rows in EDGE_ROWS:
+        qp, sax, bpp = _edge_inputs(cuda_device, 1, rows, w, rows)
+        want = tops.lower_bound_sq(qp[0], sax, bpp, 256, impl="ref")
+        for transposed in (False, True):
+            got = tops.lower_bound_sq(qp[0], sax, bpp, 256,
+                                      transposed=transposed)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (rows, transposed)

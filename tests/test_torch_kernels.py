@@ -172,6 +172,45 @@ def test_lower_bound_multi_bitwise_incl_pads_and_dead_blocks(impl, n_q, w):
         assert ulps.max() <= 3
 
 
+def _q_grid(kind):
+    bp = tx.padded_breakpoints(256)  # every breakpoint, with -BIG and +BIG
+    if kind == "breakpoints":
+        return bp
+    if kind in ("above", "below"):
+        return torch.nextafter(bp, torch.tensor(
+            float("inf") if kind == "above" else float("-inf")))
+    if kind == "zeros":
+        return torch.tensor([0.0, -0.0])
+    if kind == "big":
+        big = torch.tensor([tx.BIG, -tx.BIG], dtype=torch.float32)
+        return torch.cat([big, torch.nextafter(big, torch.zeros(2)),
+                          torch.nextafter(big, 2 * big)])
+    return _t(np.random.default_rng(7).standard_normal(4096)
+              .astype(np.float32) * 3)
+
+
+@pytest.mark.parametrize("kind", ["breakpoints", "above", "below", "zeros",
+                                  "big", "random"])
+def test_lower_bound_relu_max_on_bits(kind):
+    # The CUDA kernel takes max(q - hi, lo - q, 0) as one integer max with
+    # relu on the float bit patterns (__vimax_s32_relu). Over every symbol's
+    # region (card 256) it must equal the plain version's float max and give
+    # the same bits once squared; the kernel itself runs only on the card.
+    bpp = tx.padded_breakpoints(256)
+    lo, hi = bpp[:-1][None, :], bpp[1:][None, :]
+    q = _q_grid(kind)[:, None]
+    a, b = q - hi, lo - q
+    assert torch.isfinite(a).all() and torch.isfinite(b).all()
+    assert not ((a > 0) & (b > 0)).any()  # lo <= hi: one side at most
+    on_bits = torch.clamp_min(torch.maximum(
+        a.view(torch.int32), b.view(torch.int32)), 0).view(torch.float32)
+    plain = torch.clamp_min(torch.maximum(a, b), 0)
+    assert torch.equal(on_bits, plain)
+    assert not torch.signbit(on_bits).any()
+    assert torch.equal((on_bits * on_bits).view(torch.int32),
+                       (plain * plain).view(torch.int32))
+
+
 def test_lower_bound_multi_refuses_bad_layouts():
     qp, sax, block_len, block = _packed_case(2, 16)
     bpp = tx.padded_breakpoints()
