@@ -282,8 +282,8 @@ def hot_loop(insts: list, w: int):
     fewest instructions per (query, row) pair. Each pair takes w + 1 FMULs
     (w squares and the scale), so a loop's pairs are its FMULs / (w + 1).
     Returns (instructions, pairs, per pair, per segment, opcode counts), or
-    None where no loop holds a pair (the single-query kernel loops over no
-    queries: each thread computes one pair)."""
+    None where no loop holds a pair (a kernel in which each thread computes
+    one pair; the single query's grid-stride loop holds one a row)."""
     loops = []
     for addr, op, body in insts:
         m = re.search(r"BRA\S*\s+(?:`\()?(0x[0-9a-f]+)", body)
@@ -323,7 +323,7 @@ def report_lb_code(tag: str, build_log: str, so_path) -> dict:
             continue
         loop = hot_loop(insts, w)
         if loop is None:
-            log(f"[{tag}] {inst} SASS: no loop over queries, "
+            log(f"[{tag}] {inst} SASS: no loop holds a (query, row) pair, "
                 f"{len(insts)} instructions in all")
             continue
         n, pairs, per_pair[inst], per_seg, counts = loop

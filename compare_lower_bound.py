@@ -19,7 +19,13 @@ builds are timed with CUDA events in turns: baseline, port, port,
 baseline, while ``nvidia-smi`` samples the SM clock. With ``cuobjdump`` it
 also prints both builds' inner-loop instructions per (query, row) pair
 and, for the batch entries, the share of the card's issue rate (one warp
-instruction a clock in each of the 528 schedulers) that the loop reaches. The last lines are a JSON object of the times
+instruction a clock in each of the 528 schedulers) that the loop reaches.
+For the single query, which is bound by bytes, it prints each build's
+share of its bound (the bytes it must move over 3.35 TB/s), and times both
+builds again on three SAX inputs of the same shape whose symbols set how a
+warp's table lookups fall on shared-memory banks (``symbol_patterns``):
+without a profiler on the card, that is how a build's cost from bank
+conflicts shows. The last lines are a JSON object of the times and shares
 and the ``nvidia-smi`` name and power limit.
 """
 
@@ -28,6 +34,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import functools
 import json
 import pathlib
 import statistics
@@ -99,6 +106,36 @@ def packed_rows(sax, sizes, block):
                                            device=sax.device))
 
 
+def symbol_patterns(sax, gen) -> dict:
+    """The single query's SAX inputs: the index's own rows (leaf order) and
+    three of their shape. Row r is lane r % 32 of its warp, so each column
+    gives a warp's 32 table lookups: ``uniform``, random symbols;
+    ``broadcast``, one symbol for all 32 lanes (a new one each warp and
+    column), which no table layout serves with a conflict; ``one_bank``,
+    symbols 32k, which a single shared table serves from one bank, eight
+    distinct addresses a lookup, the worst case."""
+    import torch
+
+    n, w = sax.shape
+    r = torch.arange(n, device=sax.device)[:, None]
+    j = torch.arange(w, device=sax.device)[None, :]
+    uniform = torch.randint(0, 256, (n, w), generator=gen,
+                            device=sax.device, dtype=torch.int32)
+    return {"leaf_order": sax, "uniform": uniform.to(torch.uint8),
+            "broadcast": ((r // 32 * 7 + j) % 256).to(torch.uint8),
+            "one_bank": ((r * 3 + j) % 8 * 32).to(torch.uint8)}
+
+
+def in_turns(old, new, iters: int) -> tuple:
+    """Mean ms of ``old`` and ``new`` timed in turns (old, new, new, old)
+    and the median SM clock (MHz, None without samples) meanwhile."""
+    clocks = []
+    with sm_clocks(clocks):
+        turns = [cs.time_ms(old, iters), cs.time_ms(new, iters),
+                 cs.time_ms(new, iters), cs.time_ms(old, iters)]
+    return turns, statistics.median(clocks) if clocks else None
+
+
 def compare(args, dev, base, per_pair) -> dict:
     """Check and time each entry of the library ``base`` against the port's
     on ``dev``; returns the times by entry. ``per_pair`` holds the SASS
@@ -146,10 +183,10 @@ def compare(args, dev, base, per_pair) -> dict:
             "baseline multi launch")
         return out
 
-    def old_single():
+    def old_single(sax=index.sax):
         out = torch.empty((n_series,), device=dev)
         cs.expect(base.lower_bound_sq_launch(
-            qp1.data_ptr(), index.sax.data_ptr(), bpp.data_ptr(),
+            qp1.data_ptr(), sax.data_ptr(), bpp.data_ptr(),
             out.data_ptr(), n_series, w, bpp.numel(), scale,
             stream()) == 0, "baseline single launch")
         return out
@@ -171,20 +208,24 @@ def compare(args, dev, base, per_pair) -> dict:
         cs.expect(torch.equal(a, b), f"{name}: baseline and port outputs "
                   "are not bitwise equal")
         del a, b
-        it = ITERS[name]
-        clocks = []
-        with sm_clocks(clocks):
-            turns = [cs.time_ms(old, it), cs.time_ms(new, it),
-                     cs.time_ms(new, it), cs.time_ms(old, it)]
+        turns, mhz = in_turns(old, new, ITERS[name])
         t_old, t_new = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
-        mhz = statistics.median(clocks) if clocks else None
         cs.log(f"[compare] {name}: baseline {turns[0]:.4f} / {turns[3]:.4f} "
                f"ms, port {turns[1]:.4f} / {turns[2]:.4f} ms; port/baseline "
                f"{t_new / t_old:.3f}; outputs bitwise equal; SM clock "
-               f"median {mhz} MHz of {len(clocks)} samples")
+               f"median {mhz} MHz")
         result[name] = dict(baseline_ms=[turns[0], turns[3]],
                             port_ms=[turns[1], turns[2]],
                             ratio=t_new / t_old, sm_mhz=mhz)
+        if name == "lower_bound_sq":
+            b_ms, b_by = cs.bound_ms(
+                index.sax.numel() + bpp.numel() * 4 + w * 4 + n_series * 4,
+                n_series * (6 * w + 1))
+            result[name]["bound_ms"] = b_ms
+            for who, t in (("port", t_new), ("baseline", t_old)):
+                cs.log(f"[compare] {name} {who}: {100 * b_ms / t:.1f}% of "
+                       f"its {b_ms:.4f} ms bound (by {b_by})")
+                result[name][f"{who}_bound_share"] = b_ms / t
         if name not in FORMS or mhz is None:
             continue
         for who, t in (("port", t_new), ("baseline", t_old)):
@@ -199,6 +240,25 @@ def compare(args, dev, base, per_pair) -> dict:
                    f"{100 * rate / ceiling:.1f}% of one a clock per "
                    f"scheduler at {mhz} MHz")
             result[name][f"{who}_issue_share"] = rate / ceiling
+
+    single = result["lower_bound_sq"]
+    single["patterns"] = {}
+    for pat, sax in symbol_patterns(index.sax, gen).items():
+        old = functools.partial(old_single, sax)
+        new = functools.partial(ops.lower_bound_sq, qp1, sax, bpp, n)
+        cs.expect(torch.equal(old(), new()), f"lower_bound_sq on {pat} "
+                  "symbols: baseline and port outputs are not bitwise equal")
+        turns, mhz = in_turns(old, new, ITERS["lower_bound_sq"])
+        t_old, t_new = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+        share = single["bound_ms"] / t_old, single["bound_ms"] / t_new
+        cs.log(f"[compare] lower_bound_sq on {pat} symbols: baseline "
+               f"{t_old:.4f} ms ({100 * share[0]:.1f}% of bound), port "
+               f"{t_new:.4f} ms ({100 * share[1]:.1f}%); port/baseline "
+               f"{t_new / t_old:.3f}; bitwise equal; SM clock median {mhz} "
+               "MHz")
+        single["patterns"][pat] = dict(baseline_ms=[turns[0], turns[3]],
+                                       port_ms=[turns[1], turns[2]],
+                                       sm_mhz=mhz)
     return result
 
 

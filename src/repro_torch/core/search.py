@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import isax
-from repro_torch.core.device import as_f32
+from repro_torch.core.device import as_f32, resolve_device
 from repro_torch.core.index import ParISIndex
 from repro_torch.kernels import ops
 
@@ -123,13 +123,16 @@ def as_tier(tier) -> Tier:
         f"tier must be None, 'exact' or a Tier instance, got {tier!r}")
 
 
-def tier_arrays(tiers, device="cpu") -> tuple:
+def tier_arrays(tiers, device="cuda") -> tuple:
     """Per-row engine parameters for a sequence of :class:`Tier` values.
 
-    Returns ``((Q,) float32 eps_factor_sq, (Q,) int32 budget_rounds)``:
-    epsilon rows carry the squared-space factor ``(1+eps)**2``, budget rows
-    their round budget; the others factor 1.0 and an unlimited budget.
+    Returns ``((Q,) float32 eps_factor_sq, (Q,) int32 budget_rounds)`` on
+    ``device`` (the card unless the caller asks for the CPU; see
+    :func:`repro_torch.core.device.resolve_device`): epsilon rows carry the
+    squared-space factor ``(1+eps)**2``, budget rows their round budget;
+    the others factor 1.0 and an unlimited budget.
     """
+    dev = resolve_device(device)
     fac = np.ones((len(tiers),), np.float32)
     bud = np.full((len(tiers),), _BUDGET_UNLIMITED, np.int32)
     for i, t in enumerate(tiers):
@@ -137,7 +140,7 @@ def tier_arrays(tiers, device="cpu") -> tuple:
             fac[i] = (1.0 + t.eps) ** 2
         elif t.kind == "budget":
             bud[i] = t.budget_rounds
-    return (torch.tensor(fac, device=device), torch.tensor(bud, device=device))
+    return (torch.tensor(fac, device=dev), torch.tensor(bud, device=dev))
 
 
 def achieved_epsilon(achieved_factor_sq) -> np.ndarray:

@@ -1,7 +1,9 @@
 // The squared PAA-to-iSAX lower bound,
 // (n/w) * sum_j max(q_j - hi_j, lo_j - q_j, 0)^2, of (Q, w) f32 query PAA
-// against (N, w) uint8 SAX rows -> (Q, N) f32. One templated kernel serves
-// three C entries, each with its own wrapper and launch count:
+// against (N, w) uint8 SAX rows -> (Q, N) f32. Three C entries, each with
+// its own wrapper and launch count; the two batch entries share one
+// templated kernel, lb_kernel, and the single query has its own,
+// lb_single_kernel:
 //
 //   lower_bound_sq_batch_launch  Q queries x N rows. Replaces the TPU kernel
 //       repro/kernels/lower_bound.py::_lb_kernel_batch
@@ -54,9 +56,41 @@
 // the R accumulators give the issue slots independent work. The output
 // pointer advances by N a query. A thread with a row past N or (masked
 // form) a pad row takes a guarded copy of the loop in which such rows do
-// no arithmetic. The single-query form is the same code at one row a thread
-// in 256-thread blocks: it is bound by bytes, and four rows' bound registers
-// would cut the occupancy that hides its load latency.
+// no arithmetic.
+//
+// The single-query form has a kernel of its own, lb_single_kernel: it is
+// bound by bytes, not issue, and in the batch geometry (one block a tile,
+// the table and the query staged in every block, one shared table) it
+// reached 43% of its bound on an H100. Two costs set that time, as timed
+// with its symbols varied: the block prologue (0.19 ms with all 32 lanes
+// of a warp on one symbol, no conflicts) and bank conflicts on the table
+// (0.23 ms on an index's leaf-ordered rows, 0.30 ms on uniform symbols,
+// 0.60 ms with every symbol on one bank). The design removes both:
+//   - A persistent grid. As many 512-thread blocks as the SMs hold at once
+//     (from the occupancy calculator: 4 an SM at w = 16) fill the table
+//     and load the query's w values into registers once, then walk the
+//     rows with a grid-stride loop, one row a thread a step, with no
+//     barrier inside the loop. A block a 256-row tile paid three
+//     dependent memory latencies (table, query, row) and three barriers
+//     for 4 KB of loads.
+//   - Loads in flight: a register double buffer. Each thread issues the
+//     16-byte load of its next row before the lookups and arithmetic of
+//     the current one, so an SM keeps one row a thread in flight while it
+//     computes (32 KB at w = 16).
+//   - Conflict-free lookups. With one shared table, a warp's 32 lookups
+//     land on the banks sym % 32 of their symbols, and distinct symbols on
+//     one bank are served one after another. Here the table is replicated
+//     once per lane: entry s of lane l is s_bp[s * 32 + l], so every
+//     lookup of a warp hits bank l in one wavefront, whatever the symbols;
+//     hi is the same address plus 128 B. 257 x 32 floats, 32.9 KB of
+//     static shared memory, filled from the n_bpp entries given (so a
+//     cardinality below 256 works). A per-query table of squared gaps
+//     (w x 256 floats, half the instructions a row) ran 4% faster on
+//     leaf-ordered rows but kept the conflicts: 2.3x slower with every
+//     symbol on one bank. This one's time does not depend on the symbols.
+// The arithmetic is the batch forms' (region_gap, then __fmul_rn /
+// __fadd_rn in the order of j from the first square, scale last), so its
+// bits are the plain version's; rows past N store nothing.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -68,24 +102,25 @@ constexpr int kSymbols = 256;  // uint8 symbols: at most 257 padded breakpoints
 // The three entries' forms of the kernel.
 constexpr int kBatch = 0, kMasked = 1, kSingle = 2;
 
-// Rows a thread and threads a block. The batch forms are bound by the issue
-// rate and share each query's overhead over R rows (2w bound registers a
-// row); the single query is bound by bytes and keeps one row a thread in
-// 256-thread blocks, for the occupancy that hides its load latency.
-template <int W, int kForm>
-constexpr int kRows = kForm == kSingle ? 1 : W == 32 ? 2 : 4;
-template <int kForm>
-constexpr int kThreads = kForm == kSingle ? 256 : 128;
+// Rows a thread and threads a block of the batch forms. They are bound by
+// the issue rate and share each query's overhead over R rows (2w bound
+// registers a row).
+template <int W>
+constexpr int kRows = W == 32 ? 2 : 4;
+constexpr int kThreads = 128;
 // Blocks an SM must hold in the batch forms, passed to ptxas through
 // __launch_bounds__ as a register cap, from a budget of registers a thread:
 // 2wR bounds, w query values and 24 for the sums, pointers and loop state
 // (168 at w = 16: 3 blocks, 12 warps an SM). Left to itself ptxas took 183
 // for one of the two batch forms, room for only 2 blocks, and that form ran
-// 5% slower than the other at 168. The single-query form has no such cap:
-// with one, ptxas chose a schedule that ran 13-20% slower.
-template <int W, int kForm>
-constexpr int kMinBlocks =
-    65536 / (kThreads<kForm> * (2 * W * kRows<W, kForm> + W + 24));
+// 5% slower than the other at 168.
+template <int W>
+constexpr int kMinBlocks = 65536 / (kThreads * (2 * W * kRows<W> + W + 24));
+
+// The single-query kernel: threads a block, and the lanes of a warp, each
+// with its own copy of the breakpoint table.
+constexpr int kSingleThreads = 512;
+constexpr int kLanes = 32;
 
 template <int W>
 __device__ __forceinline__ void load_symbols(const uint8_t* __restrict__ row,
@@ -172,7 +207,7 @@ __device__ __forceinline__ void bound_rows(const float* s_q, int nq,
   }
 }
 
-// kForm: kBatch, kSingle, or kMasked, the packed multi-component form with
+// kForm: kBatch, or kMasked, the packed multi-component form with
 // block_len / block_n.
 template <int W, int kForm>
 __device__ __forceinline__ void lb_block(
@@ -180,7 +215,7 @@ __device__ __forceinline__ void lb_block(
     const float* __restrict__ bpp, const int32_t* __restrict__ block_len,
     float* __restrict__ out, int Q, long long N, int n_bpp, int block_n,
     float scale) {
-  constexpr int R = kRows<W, kForm>, T = kThreads<kForm>;
+  constexpr int R = kRows<W>, T = kThreads;
   __shared__ float s_bp[kSymbols + 1];  // bp[s] .. bp[s + 1] bound symbol s
   __shared__ __align__(16) float s_q[kQueryBlock * W];
   for (int i = threadIdx.x; i < n_bpp; i += T) s_bp[i] = bpp[i];
@@ -221,7 +256,7 @@ __device__ __forceinline__ void lb_block(
 }
 
 template <int W, int kForm>
-__global__ void __launch_bounds__(kThreads<kForm>, kMinBlocks<W, kForm>)
+__global__ void __launch_bounds__(kThreads, kMinBlocks<W>)
 lb_kernel(const float* __restrict__ qpaa, const uint8_t* __restrict__ sax,
           const float* __restrict__ bpp, const int32_t* __restrict__ block_len,
           float* __restrict__ out, int Q, long long N, int n_bpp, int block_n,
@@ -230,30 +265,130 @@ lb_kernel(const float* __restrict__ qpaa, const uint8_t* __restrict__ sax,
                      scale);
 }
 
+// A row's w uint8 symbols as w / 4 words, one vector load.
 template <int W>
-__global__ void __launch_bounds__(kThreads<kSingle>)
+__device__ __forceinline__ void load_words(const uint8_t* __restrict__ row,
+                                           uint32_t (&v)[W / 4]) {
+  if constexpr (W % 16 == 0) {
+#pragma unroll
+    for (int c = 0; c < W / 16; ++c) {
+      const uint4 x = __ldg(reinterpret_cast<const uint4*>(row) + c);
+      v[4 * c] = x.x;
+      v[4 * c + 1] = x.y;
+      v[4 * c + 2] = x.z;
+      v[4 * c + 3] = x.w;
+    }
+  } else if constexpr (W == 8) {
+    const uint2 x = __ldg(reinterpret_cast<const uint2*>(row));
+    v[0] = x.x;
+    v[1] = x.y;
+  } else {
+    static_assert(W == 4, "w must be 4, 8, 16 or 32");
+    v[0] = __ldg(reinterpret_cast<const uint32_t*>(row));
+  }
+}
+
+// lo and hi of symbol sym in the calling lane's copy of the table. lane_bp
+// is the 32-bit shared-memory address of the lane's entry 0; entry s lies
+// s * kLanes floats on, so hi (entry sym + 1) is 128 B after lo. The address
+// is one instruction from the symbol; written as a float* index the same
+// lookup became 64-bit generic-address arithmetic, 30 more instructions a
+// row at w = 16. volatile keeps the loads after the barrier that ends the
+// table fill.
+__device__ __forceinline__ void lane_bounds(uint32_t lane_bp, unsigned sym,
+                                            float& lo, float& hi) {
+  static_assert(kLanes * sizeof(float) == 128, "hi is 128 B after lo");
+  asm volatile(
+      "ld.shared.f32 %0, [%2];\n\t"
+      "ld.shared.f32 %1, [%2+128];"
+      : "=f"(lo), "=f"(hi)
+      : "r"(lane_bp + sym * (kLanes * (unsigned)sizeof(float))));
+}
+
+// One query against rows [0, N), a persistent grid (see the note at the
+// top).
+template <int W>
+__global__ void __launch_bounds__(kSingleThreads)
 lb_single_kernel(const float* __restrict__ qpaa,
                  const uint8_t* __restrict__ sax,
                  const float* __restrict__ bpp, float* __restrict__ out,
                  long long N, int n_bpp, float scale) {
-  lb_block<W, kSingle>(qpaa, sax, bpp, nullptr, out, 1, N, n_bpp, 0, scale);
+  // Entry s of lane l at s_bp[s * kLanes + l]. Thread s writes entry s's
+  // copies, lane (l + s) % kLanes at step l, so a warp's stores of one
+  // step land on 32 banks.
+  __shared__ float s_bp[(kSymbols + 1) * kLanes];
+  for (int s = threadIdx.x; s < n_bpp; s += kSingleThreads) {
+    const float v = __ldg(bpp + s);
+#pragma unroll
+    for (int l = 0; l < kLanes; ++l) s_bp[s * kLanes + (l + s) % kLanes] = v;
+  }
+  float q[W];
+#pragma unroll
+  for (int j = 0; j < W; ++j) q[j] = __ldg(qpaa + j);
+  const long long stride = (long long)gridDim.x * kSingleThreads;
+  long long row = (long long)blockIdx.x * kSingleThreads + threadIdx.x;
+  uint32_t cur[W / 4] = {};
+  if (row < N) load_words<W>(sax + row * W, cur);
+  __syncthreads();
+
+  const uint32_t lane_bp =
+      (uint32_t)__cvta_generic_to_shared(s_bp + threadIdx.x % kLanes);
+  for (; row < N; row += stride) {
+    uint32_t next[W / 4] = {};
+    if (row + stride < N) load_words<W>(sax + (row + stride) * W, next);
+    float acc;
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      // Symbol j, zero-extended byte j % 4 of its word (one PRMT).
+      const unsigned sym = __byte_perm(cur[j / 4], 0, 0x4440 | (j % 4));
+      float lo, hi;
+      lane_bounds(lane_bp, sym, lo, hi);
+      const float d = region_gap(q[j], lo, hi);
+      acc = j ? __fadd_rn(acc, __fmul_rn(d, d)) : __fmul_rn(d, d);
+    }
+    out[row] = __fmul_rn(scale, acc);
+#pragma unroll
+    for (int c = 0; c < W / 4; ++c) cur[c] = next[c];
+  }
+}
+
+// The single query's grid: as many blocks as the card holds at once, or
+// one a row tile where N is smaller.
+template <int W>
+int launch_single(const void* qpaa, const void* sax, const void* bpp,
+                  void* out, long long N, int n_bpp, float scale,
+                  cudaStream_t s) {
+  int dev, sms, per_sm;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, lb_single_kernel<W>, kSingleThreads, 0);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (N + kSingleThreads - 1) / kSingleThreads;
+  const long long blocks = tiles < (long long)sms * per_sm
+                               ? tiles : (long long)sms * per_sm;
+  lb_single_kernel<W><<<(unsigned)blocks, kSingleThreads, 0, s>>>(
+      (const float*)qpaa, (const uint8_t*)sax, (const float*)bpp,
+      (float*)out, N, n_bpp, scale);
+  return (int)cudaGetLastError();
 }
 
 template <int W, int kForm>
 int launch_w(const void* qpaa, const void* sax, const void* bpp,
              const void* block_len, void* out, int Q, long long N, int n_bpp,
              int block_n, float scale, cudaStream_t s) {
-  constexpr long long tile = (long long)kThreads<kForm> * kRows<W, kForm>;
-  const long long blocks = (N + tile - 1) / tile;
-  if constexpr (kForm == kSingle)
-    lb_single_kernel<W><<<(unsigned)blocks, kThreads<kForm>, 0, s>>>(
-        (const float*)qpaa, (const uint8_t*)sax, (const float*)bpp,
-        (float*)out, N, n_bpp, scale);
-  else
-    lb_kernel<W, kForm><<<(unsigned)blocks, kThreads<kForm>, 0, s>>>(
+  if constexpr (kForm == kSingle) {
+    return launch_single<W>(qpaa, sax, bpp, out, N, n_bpp, scale, s);
+  } else {
+    constexpr long long tile = (long long)kThreads * kRows<W>;
+    const long long blocks = (N + tile - 1) / tile;
+    lb_kernel<W, kForm><<<(unsigned)blocks, kThreads, 0, s>>>(
         (const float*)qpaa, (const uint8_t*)sax, (const float*)bpp,
         (const int32_t*)block_len, (float*)out, Q, N, n_bpp, block_n, scale);
-  return (int)cudaGetLastError();
+    return (int)cudaGetLastError();
+  }
 }
 
 template <int kForm>

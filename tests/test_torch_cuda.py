@@ -274,27 +274,27 @@ def test_cuda_packed_engine_matches_cpu(cuda_device):
     assert torch.equal(p1.cpu(), p) and torch.equal(d1.cpu(), d)
 
 
-# The lower-bound kernel gives each thread 4 rows (2 at w = 32) of a
+# The batch lower-bound kernel gives each thread 4 rows (2 at w = 32) of a
 # 128-thread block, a tile of 512 rows (256 at w = 32). These N run one
 # below, at and one above both tiles, and a large odd N.
 EDGE_ROWS = (255, 256, 257, 511, 512, 513, 100_003)
 
 
-def _edge_inputs(dev, n_q, rows, w, seed):
-    # SAX rows of every symbol, with 0 and 255 forced on some rows so the
-    # +/-BIG pads bound them; query PAAs on breakpoints, on their float
+def _edge_inputs(dev, n_q, rows, w, seed, card=256):
+    # SAX rows of every symbol, with 0 and card - 1 forced on some rows so
+    # the +/-BIG pads bound them; query PAAs on breakpoints, on their float
     # neighbours, at +/-0.0 and at +/-BIG.
     rng = np.random.default_rng(seed)
-    bp = tx.padded_breakpoints(256).numpy()
+    bp = tx.padded_breakpoints(card).numpy()
     pool = np.concatenate([bp, np.nextafter(bp, np.float32(np.inf)),
                            np.nextafter(bp, np.float32(-np.inf)),
                            np.float32([0.0, -0.0]),
                            rng.standard_normal(64).astype(np.float32)])
     qp = rng.choice(pool, size=(n_q, w)).astype(np.float32)
-    sax = rng.integers(0, 256, size=(rows, w), dtype=np.uint8)
-    sax[::5], sax[2::5] = 0, 255
+    sax = rng.integers(0, card, size=(rows, w), dtype=np.uint8)
+    sax[::5], sax[2::5] = 0, card - 1
     return (_t(qp).to(dev), _t(sax).to(dev),
-            tx.padded_breakpoints(256, dev))
+            tx.padded_breakpoints(card, dev))
 
 
 @pytest.mark.cuda
@@ -340,3 +340,62 @@ def test_cuda_lower_bound_single_edges_bitwise(cuda_device, w):
                                       transposed=transposed)
             torch.cuda.synchronize()
             assert torch.equal(got, want), (rows, transposed)
+
+
+# The single-query kernel walks the rows in a persistent grid (as many
+# 512-row tiles at once as the card holds, 270,336 rows at w = 16 on an
+# H100) with one copy of the breakpoint table per lane, filled from the n_bpp
+# entries given. These N take several passes of the grid, or less than one
+# tile.
+SINGLE_ROWS = (1, 31, 33, 1_000_003, 2**21 + 5)
+
+
+def _single_bitwise(qp, sax, bpp):
+    want = tops.lower_bound_sq(qp, sax, bpp, 256, impl="ref")
+    for transposed in (False, True):
+        got = tops.lower_bound_sq(qp, sax, bpp, 256, transposed=transposed)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), transposed
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("card", [2, 16, 64, 128])  # n_bpp < 257
+@pytest.mark.parametrize("w", [4, 8, 16, 32])
+def test_cuda_lower_bound_single_cardinalities_bitwise(cuda_device, w, card):
+    qp, sax, bpp = _edge_inputs(cuda_device, 1, 5003, w, card + w, card=card)
+    _single_bitwise(qp[0], sax, bpp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", SINGLE_ROWS)
+@pytest.mark.parametrize("w", [4, 8, 16, 32])
+def test_cuda_lower_bound_single_grid_passes_bitwise(cuda_device, w, rows):
+    qp, sax, bpp = _edge_inputs(cuda_device, 1, rows, w, rows + w)
+    _single_bitwise(qp[0], sax, bpp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", ["broadcast", "one_bank", "every_symbol"])
+@pytest.mark.parametrize("w", [4, 8, 16, 32])
+def test_cuda_lower_bound_single_symbol_patterns_bitwise(cuda_device, w,
+                                                         pattern):
+    # A warp's 32 rows are its 32 lanes. broadcast: all lanes of a warp on
+    # one symbol (a new one each warp and column); one_bank: symbols 32k,
+    # the same bank of a single shared table; every_symbol: row r takes
+    # symbol (r + j) % 256 in column j.
+    rows = 70_003
+    qp, _, bpp = _edge_inputs(cuda_device, 1, rows, w, w)
+    r = torch.arange(rows, device=cuda_device)[:, None]
+    j = torch.arange(w, device=cuda_device)[None, :]
+    sym = {"broadcast": (r // 32 * 7 + j) % 256,
+           "one_bank": (r * 3 + j) % 8 * 32,
+           "every_symbol": (r + j) % 256}[pattern]
+    _single_bitwise(qp[0], sym.to(torch.uint8).contiguous(), bpp)
+
+
+@pytest.mark.cuda
+def test_cuda_tier_arrays_default_to_the_card(cuda_device):
+    from repro_torch.core.search import Tier, tier_arrays
+
+    fac, bud = tier_arrays([Tier.epsilon(0.5), Tier.budget(3)])
+    assert fac.device.type == bud.device.type == "cuda"

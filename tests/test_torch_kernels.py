@@ -26,6 +26,7 @@ from repro.kernels import ops as jops
 from repro_torch.core import isax as tx
 from repro_torch.kernels import _build
 from repro_torch.kernels import ops as tops
+from test_torch_cuda import _edge_inputs
 from test_torch_search import assert_float_parity
 
 
@@ -209,6 +210,42 @@ def test_lower_bound_relu_max_on_bits(kind):
     assert not torch.signbit(on_bits).any()
     assert torch.equal((on_bits * on_bits).view(torch.int32),
                        (plain * plain).view(torch.int32))
+
+
+@pytest.mark.parametrize("card", [2, 16, 64, 128, 256])
+@pytest.mark.parametrize("w", [4, 8, 16, 32])
+def test_lower_bound_single_lookup_scheme_bitwise(card, w):
+    # lb_single_kernel (csrc/lower_bound.cu) in plain PyTorch. Thread s
+    # writes entry s of the padded table to s_bp[s * 32 + (l + s) % 32] at
+    # step l. The thread of row r is lane r % 32 (tiles and the grid stride
+    # are multiples of 32); it reads lo at s_bp[sym * 32 + lane] and hi 32
+    # floats on, takes the gap as an integer max with relu on the float
+    # bits, and sums from the first square in the order of j, scale last.
+    # Every (symbol, lane) pair and every edge PAA of _edge_inputs must give
+    # the plain version's bits; unwritten slots are NaN.
+    bpp = tx.padded_breakpoints(card)
+    lanes, n_bpp = 32, bpp.numel()
+    s_bp = torch.full((257 * lanes,), float("nan"))
+    s = torch.arange(n_bpp)[:, None]
+    slot = s * lanes + (torch.arange(lanes)[None, :] + s) % lanes
+    assert slot.unique().numel() == n_bpp * lanes  # each slot written once
+    s_bp[slot.reshape(-1)] = bpp[s].expand(-1, lanes).reshape(-1)
+    qps, sax, _ = _edge_inputs("cpu", 8, 333, w, card + w, card=card)
+    every = (torch.arange(lanes * card)[:, None] // lanes
+             + torch.arange(w)[None, :]) % card
+    sax = torch.cat([sax, every.to(torch.uint8)])
+    lane = torch.arange(sax.shape[0]) % lanes
+    scale = torch.tensor(256 / w, dtype=torch.float32)
+    for q in qps:
+        for j in range(w):
+            at = sax[:, j].long() * lanes + lane
+            lo, hi = s_bp[at], s_bp[at + lanes]
+            d = torch.clamp_min(torch.maximum(
+                (q[j] - hi).view(torch.int32), (lo - q[j]).view(torch.int32)),
+                0).view(torch.float32)
+            acc = d * d if j == 0 else acc + d * d
+        want = tops.lower_bound_sq(q, sax, bpp, 256, impl="ref")
+        assert torch.equal(scale * acc, want)
 
 
 def test_lower_bound_multi_refuses_bad_layouts():

@@ -12,6 +12,7 @@ that ulp into an absolute, not a relative, difference.
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.core import search as js
 from repro_torch.core import search as ts
@@ -103,7 +104,7 @@ def test_tier_validation_and_errors():
     with pytest.raises(ValueError, match="k-NN mode"):
         ts.make_batch_engine(t)(queries[:2], tiers=[ts.Tier.epsilon(0.1)] * 2)
     fac, bud = ts.tier_arrays([ts.Tier.epsilon(0.5), ts.Tier.budget(3),
-                               ts.Tier.exact()])
+                               ts.Tier.exact()], device="cpu")
     jfac, jbud = js.tier_arrays([js.Tier.epsilon(0.5), js.Tier.budget(3),
                                  js.Tier.exact()])
     np.testing.assert_array_equal(fac.numpy(), np.asarray(jfac))
@@ -111,3 +112,15 @@ def test_tier_validation_and_errors():
     np.testing.assert_array_equal(
         ts.achieved_epsilon(np.array([1.0, 1.21, 0.5, np.inf], np.float32)),
         js.achieved_epsilon(np.array([1.0, 1.21, 0.5, np.inf], np.float32)))
+
+
+def test_tier_arrays_default_to_the_card():
+    # Like every entry point, tier_arrays runs on the card unless asked for
+    # the CPU: without a card the bare call raises, never falls back.
+    # (tests/test_torch_cuda.py checks the card's side.)
+    tiers = [ts.Tier.epsilon(0.5), ts.Tier.exact()]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            ts.tier_arrays(tiers)
+    fac, bud = ts.tier_arrays(tiers, device="cpu")
+    assert fac.device.type == bud.device.type == "cpu"
