@@ -37,11 +37,27 @@ Phases, each of which raises (exit code 1) on a failed check:
                 and bit-identical distances, and ``knn_batch_packed_tiered``
                 at epsilon 0.1, seeded by ``packed_seed``, the (1 + eps)
                 guarantee; peak device memory must stay under 70 GiB. Then
-                the packed lower-bound kernel's row of phase 6.
+                the packed lower-bound kernel's row of phase 6;
+  8. disk     — the paper's disk path at N = 2**disk_log2_n (default
+                2**min(log2_n, 23): the phase writes over 4.5 times its
+                raw bytes, and prints what it wrote; the H100 hosts it runs
+                on stop a command past 45 GiB of disk writes). Phase 4's first N series, made
+                again on the card, are written to a float32 file in a fresh
+                directory under ``--disk-dir`` (fsync'd, then dropped from
+                the page cache) and built from it by ``PipelineBuilder`` in
+                ParIS+ and ParIS mode (4 epochs); then a durable live store
+                (a base of N/2, eight appends through ``IngestPipeline``,
+                minor folds by ``maybe_compact``, a major fold), queried
+                fused after the appends and again after the fold;
+                ``recover`` from its directory; ``demote`` and the cold
+                query. Every index must equal ``build_index`` over the same
+                series, and every answer that index's (checked against an
+                on-card oracle) bit for bit; at phase 4's N, phase 4's
+                index and answers. Peak device memory under 70 GiB.
 
-Phases 4, 5 and 7 each drive a path with every launch count set to 0 just
-before and read just after; each kernel of a path must have launched on
-it, and a kernel's ``launches`` are its counts summed over those paths.
+Phases 4, 5, 7 and 8 each drive a path with every launch count set to 0
+just before and read just after; each kernel of a path must have launched
+on it, and a kernel's ``launches`` are its counts summed over those paths.
 The last three lines of standard output are the kernels' JSON object, the
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
 It imports no JAX: the port is the package ``repro_torch`` under ``src/``.
@@ -51,11 +67,13 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import pathlib
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
@@ -81,8 +99,19 @@ PATH_KERNELS = {
     "full": ("paa_isax", "lower_bound_sq_batch", "euclid_sq"),
     "baselines": ("lower_bound_sq", "euclid_sq", "euclid_min"),
     "packed": ("paa_isax", "lower_bound_sq_multi", "euclid_sq"),
+    "disk": ("paa_isax", "lower_bound_sq_batch", "lower_bound_sq_multi",
+             "euclid_sq"),
 }
-MAX_PEAK_GIB = 70.0  # the packed phase's device-memory limit
+MAX_PEAK_GIB = 70.0  # the packed and disk phases' device-memory limit
+DISK_CHUNK = 1 << 18  # pipeline chunk (series): the double-buffer size
+DISK_EPOCHS = 4  # the pipeline's memory limit is N / 4 series
+APPEND_BATCH = 1 << 20  # series per live append
+# The disk phase writes several times its raw bytes (the file, the
+# pipelines' epoch shards, the base, the appends, the runs, the major
+# fold's base, the cold epoch; it prints what it wrote), and the H100
+# hosts it runs on stop a command whose disk writes pass 45 GiB, deleted
+# files included: 2^24 series (16 GiB of raw) do not fit, 2^23 do.
+DISK_LOG2_N_MAX = 23
 
 
 class CheckFailed(AssertionError):
@@ -146,15 +175,26 @@ def path_counts(path: str) -> dict:
     return counts
 
 
+WALK_CHUNK = 1 << 20  # series made per generator call
+
+
+def walk_chunks(num: int, n: int, gen, device):
+    """Random walks made on ``device``, ``WALK_CHUNK`` series at a time:
+    yields (start, (rows, n) tensor)."""
+    import torch
+
+    for s in range(0, num, WALK_CHUNK):
+        e = min(s + WALK_CHUNK, num)
+        yield s, torch.randn((e - s, n), generator=gen,
+                             device=device).cumsum_(dim=1)
+
+
 def random_walks(num: int, n: int, gen, device) -> "torch.Tensor":
     import torch
 
     out = torch.empty((num, n), dtype=torch.float32, device=device)
-    chunk = 1 << 20
-    for s in range(0, num, chunk):
-        e = min(s + chunk, num)
-        out[s:e] = torch.randn((e - s, n), generator=gen,
-                               device=device).cumsum_(dim=1)
+    for s, chunk in walk_chunks(num, n, gen, device):
+        out[s:s + chunk.shape[0]] = chunk
     return out
 
 
@@ -728,6 +768,354 @@ def phase_packed(full: dict) -> tuple:
     return counts, row
 
 
+def fs_of(path: str) -> str:
+    """Filesystem type of the mount holding ``path`` (from /proc/mounts)."""
+    real, best, fstype = os.path.realpath(path), "", "unknown"
+    try:
+        with open("/proc/mounts") as f:
+            for line in f:
+                parts = line.split()
+                mnt = parts[1]
+                inside = real == mnt or real.startswith(
+                    mnt.rstrip("/") + "/")
+                if inside and len(mnt) >= len(best):
+                    best, fstype = mnt, parts[2]
+    except OSError:
+        pass
+    return f"{fstype} on {best or '?'}"
+
+
+def dir_bytes(path: str) -> int:
+    """Bytes of the files under ``path``."""
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def drop_cache(path: str) -> None:
+    """Ask the kernel to drop ``path``'s pages, so the next read is a disk
+    read (the pages are clean: the file was fsync'd)."""
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+    finally:
+        os.close(fd)
+
+
+def written() -> dict:
+    """This process's write counters from ``/proc/self/io``: ``wchar``
+    (bytes passed to write calls) and ``write_bytes`` (bytes sent to the
+    storage layer; 0 where the filesystem bypasses it)."""
+    with open("/proc/self/io") as f:
+        io = dict(line.split(": ") for line in f.read().splitlines())
+    return {k: int(io[k]) for k in ("wchar", "write_bytes")}
+
+
+def io_delta(before: dict) -> str:
+    now = written()
+    return (f"{now['wchar'] - before['wchar']} bytes (wchar; write_bytes "
+            f"{now['write_bytes'] - before['write_bytes']})")
+
+
+def timed(fn):
+    """(result, seconds) of ``fn()`` with the card synchronised after it."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_disk(full: dict) -> dict:
+    """The disk path: file -> pipelined build, live durable store, recover,
+    cold tier. Returns the launch counts of the phase."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    args, qz = full["args"], full["qz"]
+    dev = qz.device
+    n, k, rs = qz.shape[1], args.k, 4096
+    n_series = 1 << args.disk_log2_n
+    same_n = n_series == full["host"]["pos"].shape[0]
+    raw_bytes = n_series * n * 4
+    # The file, then (once it is gone) the store: a fold or a demotion
+    # writes its new component beside the one it replaces.
+    need = max(raw_bytes + raw_bytes // 8, 2 * raw_bytes) + (1 << 30)
+    os.makedirs(args.disk_dir, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="paris_disk_", dir=args.disk_dir)
+    st = os.statvfs(root)
+    free = st.f_bavail * st.f_frsize
+    log(f"[disk] N={n_series} n={n} in {root}: filesystem {fs_of(root)}, "
+        f"{free} bytes free, {need} needed")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    w0 = written()
+    try:
+        expect(free >= need, f"disk: {free / 2**30:.1f} GiB free under "
+               f"{args.disk_dir}, the phase needs {need / 2**30:.1f} GiB "
+               f"at N = 2^{args.disk_log2_n}; pass --disk-dir or a smaller "
+               "--disk-log2-n")
+        counts = _disk_steps(full, root, n_series, same_n, dev, n, k, rs)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[disk] the phase wrote {io_delta(w0)}, "
+        f"{(written()['wchar'] - w0['wchar']) / raw_bytes:.3f} times its "
+        f"{raw_bytes} raw bytes")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[disk] peak device memory {peak:.2f} GiB (limit "
+        f"{MAX_PEAK_GIB:.0f})")
+    expect(peak < MAX_PEAK_GIB, f"disk peak memory {peak:.2f} GiB")
+    return counts
+
+
+def _disk_steps(full, root, n_series, same_n, dev, n, k, rs) -> dict:
+    """Steps (a)-(e) of the disk phase; returns the path's launch counts.
+
+    The counts are set to 0 after the data file and the reference answers
+    are made, and read before the kernels are held against their plain
+    versions at this path's shapes.
+    """
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (CompactionPolicy, IngestPipeline,
+                                  MutableIndex, PipelineBuilder,
+                                  SeriesSource, build_index, coldtier, isax)
+    from repro_torch.core.search import exact_knn_batch
+    from repro_torch.kernels import ops
+
+    args, queries, qz = full["args"], full["queries"], full["qz"]
+
+    # (a) The data file: phase 4's series made again on the card, kept on
+    # the host for the live store's appends.
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    series = np.empty((n_series, n), np.float32)
+    path = os.path.join(root, "series.f32")
+
+    def write():
+        with open(path, "wb") as f:
+            for s, chunk in walk_chunks(n_series, n, gen, dev):
+                host = chunk.cpu().numpy()
+                series[s:s + host.shape[0]] = host
+                host.tofile(f)
+            f.flush()
+            os.fsync(f.fileno())
+        drop_cache(path)
+
+    w0 = written()
+    _, t_write = timed(write)
+    log(f"[disk] (a) wrote {os.path.getsize(path)} bytes in {t_write:.3f} s "
+        f"({os.path.getsize(path) / t_write / 1e9:.3f} GB/s, fsync'd); "
+        f"{io_delta(w0)}")
+
+    # What every answer is held to: phase 4's, or at another N an on-card
+    # oracle over this phase's series.
+    if same_n:
+        want_d, want_p = full["d"], full["p"]
+        host = full["host"]
+    else:
+        ref_index = build_index(series, device=dev)
+        want_d, want_p = exact_knn_batch(ref_index, queries, k=k,
+                                         round_size=rs, leaf_cap=256)
+        od, _ = oracle_knn(ref_index.raw, qz, k)
+        check_against_oracle(ref_index.raw, qz, want_d, want_p, od,
+                             "disk oracle")
+        host = dict(sax=ref_index.sax.cpu(), pos=ref_index.pos.cpu(),
+                    offsets=ref_index.bucket_offsets.cpu())
+        del ref_index, od
+        torch.cuda.empty_cache()
+
+    held_to = "phase 4's" if same_n else "the on-card oracle's"
+    chunk_series = min(DISK_CHUNK, n_series // 16)
+    chunk0 = series[:chunk_series].copy()  # Stage 2's first chunk
+    ops.reset_launch_counts()  # the disk path starts here
+
+    def same_answers(d, p, what):
+        expect(torch.equal(p, want_p), f"disk {what}: positions differ")
+        expect(torch.equal(d, want_d),
+               f"disk {what}: distances not bitwise equal")
+
+    # (b) The pipeline from the file, in both modes.
+    src = SeriesSource.from_file(path, n, chunk_series=chunk_series)
+    w0 = written()
+    expect(src.num_series == n_series, "disk: file holds the wrong count")
+    for mode in ("paris+", "paris"):
+        drop_cache(path)
+        workdir = os.path.join(root, f"build-{mode}")
+        builder = PipelineBuilder(
+            mode=mode, mem_limit_series=n_series // DISK_EPOCHS,
+            workdir=workdir, device=dev)
+        (index, bs), t = timed(lambda: builder.build(src))
+        expect(bs.epochs == DISK_EPOCHS, f"disk {mode}: {bs.epochs} epochs")
+        expect(torch.equal(index.sax.cpu(), host["sax"])
+               and torch.equal(index.pos.cpu(), host["pos"])
+               and torch.equal(index.bucket_offsets.cpu(), host["offsets"]),
+               f"disk {mode}: the pipeline's index differs from phase 4's")
+        (d, p), t_q = timed(lambda: exact_knn_batch(
+            index, queries, k=k, round_size=rs, leaf_cap=256))
+        same_answers(d, p, f"pipeline {mode}")
+        log(f"[disk] (b) PipelineBuilder({mode!r}) {t:.3f} s, "
+            f"{n_series / t:.0f} series/s: read {bs.read_time:.3f} s, "
+            f"convert {bs.convert_time:.3f} s, construct "
+            f"{bs.construct_time:.3f} s, flush {bs.flush_time:.3f} s, "
+            f"finalize {bs.finalize_time:.3f} s, total {bs.total_time:.3f} s,"
+            f" {bs.epochs} epochs of {bs.chunks} chunks, overlap_efficiency "
+            f"{bs.overlap_efficiency:.4f}; shards {dir_bytes(workdir)} bytes;"
+            f" exact_knn_batch {t_q:.3f} s, answers equal {held_to}")
+        shutil.rmtree(workdir)
+        del index, d, p
+        torch.cuda.empty_cache()
+    os.remove(path)
+    log(f"[disk] (b) the pipelines wrote {io_delta(w0)}")
+
+    # (c) The live durable store: base of N/2, appends of 2^20.
+    store = os.path.join(root, "store")
+    w0 = written()
+    half = n_series // 2
+    (m, t_base) = timed(lambda: MutableIndex(
+        build_index(series[:half], device=dev), workdir=store, device=dev))
+    log(f"[disk] (c) base of {half} series built and spilled in "
+        f"{t_base:.3f} s")
+    pipe = IngestPipeline(m)
+    policy = CompactionPolicy(max_deltas=4, major_ratio=1.0)
+    folds = []
+    batch = min(APPEND_BATCH, n_series // 16)  # 8 appends at least
+    offsets = list(range(half, n_series, batch))
+
+    def ingest():
+        for i, s in enumerate(offsets):
+            pipe.append(series[s:s + batch])
+            if i < len(offsets) - 1:
+                res = m.maybe_compact(policy)
+                if res is not None:
+                    folds.append((res.tier, res.merge_time, res.stall_time))
+
+    s0 = m.stats()
+    _, t_ingest = timed(ingest)
+    s1 = m.stats()
+    comps = len(m.snapshot().components())
+    (d, p, reads, _, rounds), t_q = timed(lambda: m.exact_knn_batch(
+        queries, k=k, round_size=rs, leaf_cap=256, stats=True))
+    same_answers(d, p, "live store after the appends (fused)")
+    live = m._packed_view(m.snapshot())  # what the fused search swept
+    multi_in = (live.sax.clone(), live.block_len.clone(), live.block)
+    multi_rows = live.sax.shape[0]
+    del live
+    log(f"[disk] (c) {len(offsets)} appends in {t_ingest:.3f} s "
+        f"({pipe.stats.series_per_sec:.0f} series/s of append time, "
+        f"{pipe.stats.series / t_ingest:.0f} with the folds), of which "
+        f"spills {s1['spill_time'] - s0['spill_time']:.3f} s in "
+        f"{s1['spills'] - s0['spills']} (appends and runs), group commits "
+        f"{s1['group_commits'] - s0['group_commits']}; folds (tier, merge "
+        f"with spill s, stall s) {folds}; fused exact_knn_batch over {comps} "
+        f"components "
+        f"{t_q:.3f} s ({rounds} rounds, reads/query mean "
+        f"{reads.double().mean().item():.1f})")
+    res = m.maybe_compact(policy)
+    expect(res is not None and res.tier == "minor", "disk: last minor fold")
+    res, t_major = timed(lambda: m.compact("major"))
+    expect(res.base.num_series == n_series, "disk: the major fold's base")
+    (d, p), t_q = timed(lambda: m.exact_knn_batch(
+        queries, k=k, round_size=rs, leaf_cap=256))
+    same_answers(d, p, "live store after the major fold")
+    s_ = m.stats()
+    log(f"[disk] (c) major fold {t_major:.3f} s (merge {res.merge_time:.3f}"
+        f" s, stall {res.stall_time:.6f} s); query {t_q:.3f} s; spills "
+        f"{s_['spills']} ({s_['spill_time']:.3f} s), group commits "
+        f"{s_['group_commits']}, compactions {s_['compactions']}, merge "
+        f"{s_['merge_time']:.3f} s, stall max {s_['stall_time_max']:.6f} s, "
+        f"pack builds {s_['pack_builds']} ({s_['pack_time']:.3f} s); "
+        f"{dir_bytes(store)} bytes on disk; the store wrote "
+        f"{io_delta(w0)}")
+    del m, pipe, res, series
+    torch.cuda.empty_cache()
+
+    # (d) Recovery from the directory alone.
+    r, t_rec = timed(lambda: MutableIndex.recover(store, device=dev))
+    (d, p), t_q = timed(lambda: r.exact_knn_batch(
+        queries, k=k, round_size=rs, leaf_cap=256))
+    same_answers(d, p, "recovered store")
+    log(f"[disk] (d) recover {t_rec:.3f} s ({r.num_series} series); query "
+        f"{t_q:.3f} s; answers equal {held_to}")
+
+    # (e) The cold tier.
+    w0 = written()
+    res, t_dem = timed(r.demote)
+    expect(res is not None and res.cold is not None, "disk: demotion")
+    log(f"[disk] (e) demote wrote {io_delta(w0)}")
+    shard = r.snapshot().cold[0]
+    torch.cuda.empty_cache()
+    cache = r.stats()["cold_cache"]
+    (d, p), t_q = timed(lambda: r.exact_knn_batch(
+        queries, k=k, round_size=rs, leaf_cap=256))
+    counts = path_counts("disk")  # the disk path ends here
+    same_answers(d, p, "cold tier")
+    after = r.stats()["cold_cache"]
+    raw_leaf = shard.reader.total_bytes
+    read = after["bytes_read"] - cache["bytes_read"]
+    n_q = queries.shape[0]
+    log(f"[disk] (e) demote {t_dem:.3f} s; cold exact_knn_batch {t_q:.3f} s,"
+        f" of which host row gathers "
+        f"{after['gather_time'] - cache['gather_time']:.3f} s in "
+        f"{after['gathers'] - cache['gathers']} calls (block reads "
+        f"{after['read_time'] - cache['read_time']:.3f} s);"
+        f" raw bytes read {read} = "
+        f"{read / n_q} a query, {100 * read / n_q / raw_leaf:.4f}% of "
+        f"raw_leaf.npy ({raw_leaf} bytes) a query, {100 * read / raw_leaf:.3f}"
+        f"% for the batch; block cache hits {after['hits'] - cache['hits']},"
+        f" misses {after['misses'] - cache['misses']}; {dir_bytes(store)} "
+        f"bytes on disk")
+
+    # Each kernel of the path against its plain version at the path's
+    # shapes (after the counts were read: these launches do not count).
+    # paa_isax on Stage 2's first chunk, as the pipeline calls it.
+    w, card = shard.segments, shard.cardinality
+    x = isax.znorm(torch.from_numpy(chunk0).to(dev))
+    bp = isax.gaussian_breakpoints(card, dev)
+    got = ops.paa_isax(x, bp, w, normalize=False)
+    plain = ops.paa_isax(x, bp, w, normalize=False, impl="ref")
+    expect(all(torch.equal(g, e) for g, e in zip(got, plain)),
+           "disk: paa_isax on a Stage-2 chunk differs from its plain version")
+    del x, got, plain
+    # lower_bound_sq_multi over the live store's packed view.
+    qps = isax.paa(qz, w)
+    bpp = isax.padded_breakpoints(card, dev)
+    sax_live, block_len, block = multi_in
+    got = ops.lower_bound_sq_multi(qps, sax_live, bpp, n, block_len,
+                                   block_n=block)
+    plain = ops.lower_bound_sq_multi(qps, sax_live, bpp, n, block_len,
+                                     block_n=block, impl="ref")
+    expect(torch.equal(got, plain), "disk: lower_bound_sq_multi over the "
+           "live store not bitwise equal to its plain version")
+    del got, plain, multi_in, sax_live, block_len
+    # lower_bound_sq_batch over the cold shard's SAX.
+    got = ops.lower_bound_sq_batch(qps, shard.sax, bpp, n)
+    plain = ops.lower_bound_sq_batch(qps, shard.sax, bpp, n, impl="ref")
+    expect(torch.equal(got, plain), "disk: lower_bound_sq_batch over the "
+           "cold shard not bitwise equal to its plain version")
+    del got, plain
+    # euclid_sq over the cold view's staged rows: the answers' rows give
+    # the in-memory distances, through the kernel and the plain version.
+    view = coldtier._cold_view(shard, leaf_cap=256)
+    local = want_p.to(torch.int32)
+    every = torch.ones(local.shape, dtype=torch.bool, device=dev)
+    got = view.distances(qz, local, "auto", every)
+    expect(torch.equal(got, want_d), "disk: cold staged distances differ "
+           f"from {held_to}")
+    plain = view.distances(qz, local, "ref", every)
+    expect(torch.allclose(got, plain, rtol=1e-5, atol=1e-5),
+           "disk: cold staged distances differ from the plain version")
+    log(f"[disk] every index and answer equals {held_to} bit for bit; "
+        f"paa_isax (chunk of {chunk_series}), lower_bound_sq_multi (live "
+        f"store, {qps.shape[0]} x {multi_rows} rows), lower_bound_sq_batch "
+        f"(cold shard, {shard.num_series} rows) bitwise equal to their plain "
+        f"versions, euclid_sq (cold staged rows) within 1e-5")
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -735,7 +1123,14 @@ def main(argv=None) -> int:
                     help="full-size phase holds 2**log2_n series")
     ap.add_argument("--queries", type=int, default=64)
     ap.add_argument("--k", type=int, default=8)
+    ap.add_argument("--disk-dir", default=tempfile.gettempdir(),
+                    help="where the disk phase writes its file and store")
+    ap.add_argument("--disk-log2-n", type=int, default=None,
+                    help="the disk phase's 2**N series (default: --log2-n, "
+                    f"at most {DISK_LOG2_N_MAX})")
     args = ap.parse_args(argv)
+    if args.disk_log2_n is None:
+        args.disk_log2_n = min(args.log2_n, DISK_LOG2_N_MAX)
 
     import torch
 
@@ -763,11 +1158,16 @@ def main(argv=None) -> int:
     full = phase("full", phase_full, args, dev)
     base_counts = phase("baselines", phase_baselines, full)
     rows = phase("kernels", phase_kernels, full)
+    index = full["index"]  # phase 8 is held to phase 4's index: host copies
+    full["host"] = dict(sax=index.sax.cpu(), pos=index.pos.cpu(),
+                        offsets=index.bucket_offsets.cpu())
+    del index
     packed_counts, multi_row = phase("packed", phase_packed, full)
     rows.append(multi_row)
+    disk_counts = phase("disk", phase_disk, full)
     for row in rows:  # launches: summed over the driven paths
         row["launches"] = sum(c[row["name"]] for c in (
-            full["counts"], base_counts, packed_counts))
+            full["counts"], base_counts, packed_counts, disk_counts))
         expect(row["launches"] > 0, f"{row['name']} never launched")
     expect(sorted(r["name"] for r in rows) == sorted(KERNEL_ROWS),
            "the kernels line must list every kernel")

@@ -13,6 +13,23 @@ from repro_torch.convert import (
     packed_to_arrays,
 )
 from repro_torch.core import (
+    BlockCache,
+    BuildStats,
+    ColdReader,
+    ColdShard,
+    CompactionPolicy,
+    CompactionResult,
+    DeltaShard,
+    IngestPipeline,
+    MutableIndex,
+    PipelineBuilder,
+    SeriesSource,
+    build_delta_shard,
+    cold_exact_knn_batch,
+    cold_exact_search_batch,
+    cold_knn_batch_tiered,
+    load_cold_shard,
+    make_cold_batch_engine,
     PackedComponents,
     ParISIndex,
     SearchConfig,
@@ -44,4 +61,9 @@ __all__ = [
     "exact_search_batch", "exact_search_single", "knn_batch_packed_tiered",
     "knn_batch_tiered", "make_batch_engine", "nb_exact_search",
     "pack_components", "packed_seed",
+    "BlockCache", "BuildStats", "ColdReader", "ColdShard",
+    "CompactionPolicy", "CompactionResult", "DeltaShard", "IngestPipeline",
+    "MutableIndex", "PipelineBuilder", "SeriesSource", "build_delta_shard",
+    "cold_exact_knn_batch", "cold_exact_search_batch",
+    "cold_knn_batch_tiered", "load_cold_shard", "make_cold_batch_engine",
 ]

@@ -1,6 +1,22 @@
-"""ParIS+ core on torch: iSAX math, the flat CSR index, search."""
+"""ParIS+ core on torch: iSAX math, the flat CSR index, search, the
+pipelined build, live ingest, durability and the cold tier."""
 
-from repro_torch.core.datagen import random_walk
+from repro_torch.core.block_cache import BlockCache, ColdReader
+from repro_torch.core.build_pipeline import (
+    BuildStats,
+    PipelineBuilder,
+    bulk_load_chunk,
+    merge_runs,
+)
+from repro_torch.core.coldtier import (
+    ColdShard,
+    cold_exact_knn_batch,
+    cold_exact_search_batch,
+    cold_knn_batch_tiered,
+    load_cold_shard,
+    make_cold_batch_engine,
+)
+from repro_torch.core.datagen import SeriesSource, random_walk, write_dataset
 from repro_torch.core.index import (
     ParISIndex,
     ShardedIndex,
@@ -33,9 +49,25 @@ from repro_torch.core.search import (
     pack_components,
     packed_seed,
 )
+from repro_torch.core.ingest import (
+    CompactionPolicy,
+    CompactionResult,
+    DeltaShard,
+    IngestPipeline,
+    IngestStats,
+    MutableIndex,
+    Snapshot,
+    build_delta_shard,
+)
 
 __all__ = [
-    "random_walk",
+    "BlockCache", "ColdReader",
+    "BuildStats", "PipelineBuilder", "bulk_load_chunk", "merge_runs",
+    "ColdShard", "cold_exact_knn_batch", "cold_exact_search_batch",
+    "cold_knn_batch_tiered", "load_cold_shard", "make_cold_batch_engine",
+    "SeriesSource", "random_walk", "write_dataset",
+    "CompactionPolicy", "CompactionResult", "DeltaShard", "IngestPipeline",
+    "IngestStats", "MutableIndex", "Snapshot", "build_delta_shard",
     "ParISIndex", "ShardedIndex", "assemble_index", "build_index",
     "build_sharded_index", "empty_index", "validate_index",
     "PackedComponents", "SearchConfig", "SearchResult", "Tier",

@@ -277,11 +277,15 @@ class EngineView:
                     bounds; padding rows must come back +inf
       positions     candidate row ids -> int32 file positions
       distances     ((Q, n) z-normed queries, positions (Q, R) or shared
-                    (R,), impl) -> (Q, R) squared distances to the raw rows
-                    at those positions; the gather is clipped (NO_POS reads
-                    row 0 harmlessly: its +inf bound keeps it out of every
-                    mask). The reference splits this into ``gather_raw``
-                    and ``euclid_sq``; the port's kernel fuses the two.
+                    (R,), impl, (Q, R) bool mask) -> (Q, R) squared
+                    distances to the raw rows at those positions; the
+                    gather is clipped (NO_POS reads row 0 harmlessly: its
+                    +inf bound keeps it out of every mask). Only entries
+                    inside ``mask`` are used; the engine sets the others
+                    to +inf, so a view may skip their rows (the cold tier
+                    reads no row the round's mask discards). The reference
+                    splits this into ``gather_raw`` and ``euclid_sq``; the
+                    port's kernel fuses the two.
       seed          ((Q, n) queries, impl) -> ((Q,) bsf, (Q,) pos, leaf
                     reads): the approximate-search BSF seed, or None for a
                     cold start at (+inf, ``NO_POS``)
@@ -315,7 +319,7 @@ def _index_view(index: ParISIndex, *, leaf_cap: int) -> EngineView:
         segments=index.segments,
         lower_bounds=lower_bounds,
         positions=lambda idx: index.pos[idx.to(torch.int64)],
-        distances=lambda qs, pos, impl: ops.euclid_sq_gather(
+        distances=lambda qs, pos, impl, mask: ops.euclid_sq_gather(
             qs, index.raw, pos, impl=impl),
         seed=seed,
     )
@@ -455,13 +459,6 @@ def _engine_core(
             if not bool(go):
                 break
         lbs = _round_cols(lb_sel, r, rs, INF)
-        if sort:
-            cand_pos = view.positions(_round_cols(order, r, rs, 0))  # (Q, rs)
-            d = view.distances(qs, cand_pos, impl)  # the "disk reads"
-        else:
-            pos1 = view.positions(_round_rows(n_rows, r, rs, dev))
-            d = view.distances(qs, pos1, impl)
-            cand_pos = pos1[None, :].expand(n_q, rs)
         if tiered:
             would = lbs < kth[:, None]
             mask = ((lbs * eps_factor_sq[:, None] < kth[:, None])
@@ -469,6 +466,13 @@ def _engine_core(
             skip_lb = tier_skip(skip_lb, would, mask, lbs)
         else:
             mask = lbs < kth[:, None]
+        if sort:
+            cand_pos = view.positions(_round_cols(order, r, rs, 0))  # (Q, rs)
+            d = view.distances(qs, cand_pos, impl, mask)  # the "disk reads"
+        else:
+            pos1 = view.positions(_round_rows(n_rows, r, rs, dev))
+            d = view.distances(qs, pos1, impl, mask)
+            cand_pos = pos1[None, :].expand(n_q, rs)
         top_d, top_p, reads, updates = apply_round(
             top_d, top_p, reads, updates, cand_pos, d, mask)
         r += 1
@@ -495,7 +499,6 @@ def _engine_core(
                 break
             lbs = _round_cols(lb, r2, rs, INF)
             pos1 = view.positions(_round_rows(n_rows, r2, rs, dev))
-            d = view.distances(qs, pos1, impl)
             # lbs >= kth_bound skips candidates the main loop already had
             # (everything strictly below the K-th bound was selected); ties
             # at the bound re-distance harmlessly.
@@ -504,6 +507,7 @@ def _engine_core(
             else:
                 gate = lbs < kth[:, None]
             mask = gate & (lbs >= kth_bound[:, None]) & need[:, None]
+            d = view.distances(qs, pos1, impl, mask)
             if tiered:
                 would = (lbs < kth[:, None]) & (lbs >= kth_bound[:, None])
                 skip_lb = tier_skip(skip_lb, would, mask, lbs)
@@ -734,7 +738,7 @@ def _packed_view(
         segments=segments,
         lower_bounds=lower_bounds,
         positions=lambda idx: gpos[idx.to(torch.int64)],
-        distances=lambda qs, pos, impl: ops.euclid_sq_gather(
+        distances=lambda qs, pos, impl, mask: ops.euclid_sq_gather(
             qs, raw, pos, impl=impl),
         seed=None,
     )
@@ -925,6 +929,19 @@ def make_batch_engine(
     get factor 1 and a zero round budget, so they never extend the loop.
     ``engine.bucket(qn)`` is the padded batch size of a Q-query call.
     """
+    return _batch_engine(
+        index, _run_engine, k=k, round_size=round_size, leaf_cap=leaf_cap,
+        sort=sort, select=select, impl=impl, min_bucket=min_bucket)
+
+
+def _batch_engine(index, run: Callable, *, k, round_size, leaf_cap, sort,
+                  select, impl, min_bucket):
+    """:func:`make_batch_engine` over any store ``run`` drives.
+
+    ``run(index, qs, k=, round_size=, leaf_cap=, sort=, select=, impl=,
+    [eps_factor_sq=, budget_rounds=])`` is the engine call: the in-memory
+    :func:`_run_engine`, or the cold tier's over a ``ColdShard``.
+    """
     if k is not None and k < 1:
         raise ValueError(f"k must be None (1-NN mode) or >= 1, got {k}")
     k_eff = 1 if k is None else min(k, index.num_series)
@@ -956,12 +973,12 @@ def make_batch_engine(
             if b > qn:  # pad rows: factor 1, zero budget — inert rows
                 eps_f = torch.cat([eps_f, eps_f.new_ones(b - qn)])
                 budget = torch.cat([budget, budget.new_zeros(b - qn)])
-            top_d, top_p, _, _, _, ach_sq = _run_engine(
+            top_d, top_p, _, _, _, ach_sq = run(
                 index, qs, eps_factor_sq=eps_f, budget_rounds=budget,
                 **common)
             top_d, top_p = _pad_missing(top_d[:qn], top_p[:qn], k)
             return top_d, top_p, achieved_epsilon(ach_sq[:qn])
-        top_d, top_p, reads, updates, rounds = _run_engine(index, qs, **common)
+        top_d, top_p, reads, updates, rounds = run(index, qs, **common)
         if k is None:
             return SearchResult(
                 top_d[:qn, 0], top_p[:qn, 0], reads[:qn], updates[:qn],

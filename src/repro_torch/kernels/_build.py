@@ -150,6 +150,36 @@ def load() -> ctypes.CDLL:
         return lib
 
 
+class LaunchCounter:
+    """A kernel's launch count, exact when several threads launch at once.
+
+    ``count += 1`` on a module global is a read, an add and a store, and
+    two threads can interleave them and lose a launch; the pipeline's
+    workers and concurrent appenders launch from several threads, so the
+    count is taken under a lock.
+    """
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._count = 0
+
+    def add(self) -> None:
+        """Count one launch."""
+        with self._lock:
+            self._count += 1
+
+    @property
+    def value(self) -> int:
+        """Launches since the last :meth:`reset`."""
+        with self._lock:
+            return self._count
+
+    def reset(self) -> None:
+        """Set the count to 0."""
+        with self._lock:
+            self._count = 0
+
+
 def check(err: int, what: str) -> None:
     """Raise if a C entry returned a CUDA error (a refused launch never runs)."""
     if err:

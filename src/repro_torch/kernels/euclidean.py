@@ -32,8 +32,8 @@ import torch
 from repro_torch.kernels import _build
 
 # Kernel launches since the caller last set them to 0, one count per entry.
-launches = 0  # euclid_sq (the gather form)
-min_launches = 0  # euclid_min
+launches = _build.LaunchCounter()  # euclid_sq (the gather form)
+min_launches = _build.LaunchCounter()  # euclid_min
 
 MAX_QUERIES = 65535  # one grid row per query
 
@@ -41,7 +41,6 @@ MAX_QUERIES = 65535  # one grid row per query
 def euclid_sq_gather_cuda(queries: torch.Tensor, raw: torch.Tensor,
                           positions: torch.Tensor) -> torch.Tensor:
     """Launch the kernel; ``positions`` is (Q, R), or (R,) shared by all."""
-    global launches
     _build.require(queries, "queries", torch.float32, 2)
     _build.require(raw, "raw", torch.float32, 2)
     if positions.dim() not in (1, 2):
@@ -72,13 +71,12 @@ def euclid_sq_gather_cuda(queries: torch.Tensor, raw: torch.Tensor,
         queries.data_ptr(), raw.data_ptr(), positions.data_ptr(),
         out.data_ptr(), n_q, r, n_rows, n, stride, _build.stream_of(raw))
     _build.check(err, "euclid_sq_gather")
-    launches += 1
+    launches.add()
     return out
 
 
 def euclid_min_cuda(query: torch.Tensor, data: torch.Tensor) -> tuple:
     """(n,) query x (B, n) rows -> (0-d f32 min distance, 0-d int32 row)."""
-    global min_launches
     _build.require(query, "query", torch.float32, 1)
     _build.require(data, "data", torch.float32, 2)
     _build.same_device(query, data)
@@ -96,7 +94,7 @@ def euclid_min_cuda(query: torch.Tensor, data: torch.Tensor) -> tuple:
     err = lib.euclid_min_launch(query.data_ptr(), data.data_ptr(),
                                 best.data_ptr(), b, n, _build.stream_of(data))
     _build.check(err, "euclid_min")
-    min_launches += 1
+    min_launches.add()
     key = best[0]
     dist = (key >> 32).to(torch.int32).view(torch.float32)
     return dist, (key & 0xFFFFFFFF).to(torch.int32)

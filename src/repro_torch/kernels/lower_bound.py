@@ -52,9 +52,9 @@ import torch
 from repro_torch.kernels import _build
 
 # Kernel launches since the caller last set them to 0, one count per entry.
-launches = 0  # lower_bound_sq_batch
-single_launches = 0  # lower_bound_sq
-multi_launches = 0  # lower_bound_sq_multi
+launches = _build.LaunchCounter()  # lower_bound_sq_batch
+single_launches = _build.LaunchCounter()  # lower_bound_sq
+multi_launches = _build.LaunchCounter()  # lower_bound_sq_multi
 
 SUPPORTED_SEGMENTS = (4, 8, 16, 32)
 
@@ -74,7 +74,6 @@ def lower_bound_sq_batch_cuda(query_paa: torch.Tensor, sax: torch.Tensor,
                               bp_padded: torch.Tensor,
                               series_length: int) -> torch.Tensor:
     """Launch the kernel on CUDA tensors; returns (Q, N) float32 bounds."""
-    global launches
     _build.require(query_paa, "query_paa", torch.float32, 2)
     _build.require(sax, "sax", torch.uint8, 2)
     _build.require(bp_padded, "bp_padded", torch.float32, 1)
@@ -89,7 +88,7 @@ def lower_bound_sq_batch_cuda(query_paa: torch.Tensor, sax: torch.Tensor,
         out.data_ptr(), n_q, n, w, bp_padded.numel(), series_length / w,
         _build.stream_of(sax))
     _build.check(err, "lower_bound_sq_batch")
-    launches += 1
+    launches.add()
     return out
 
 
@@ -97,7 +96,6 @@ def lower_bound_sq_cuda(query_paa: torch.Tensor, sax: torch.Tensor,
                         bp_padded: torch.Tensor,
                         series_length: int) -> torch.Tensor:
     """One (w,) query against (N, w) SAX rows; returns (N,) float32 bounds."""
-    global single_launches
     _build.require(query_paa, "query_paa", torch.float32, 1)
     _build.require(sax, "sax", torch.uint8, 2)
     _build.require(bp_padded, "bp_padded", torch.float32, 1)
@@ -112,7 +110,7 @@ def lower_bound_sq_cuda(query_paa: torch.Tensor, sax: torch.Tensor,
         out.data_ptr(), n, w, bp_padded.numel(), series_length / w,
         _build.stream_of(sax))
     _build.check(err, "lower_bound_sq")
-    single_launches += 1
+    single_launches.add()
     return out
 
 
@@ -124,7 +122,6 @@ def lower_bound_sq_multi_cuda(query_paa: torch.Tensor, sax: torch.Tensor,
 
     Row ``r`` is real iff ``r % block_n < block_len[r // block_n]``.
     """
-    global multi_launches
     _build.require(query_paa, "query_paa", torch.float32, 2)
     _build.require(sax, "sax", torch.uint8, 2)
     _build.require(bp_padded, "bp_padded", torch.float32, 1)
@@ -145,5 +142,5 @@ def lower_bound_sq_multi_cuda(query_paa: torch.Tensor, sax: torch.Tensor,
         block_len.data_ptr(), out.data_ptr(), n_q, n, w, bp_padded.numel(),
         block_n, series_length / w, _build.stream_of(sax))
     _build.check(err, "lower_bound_sq_multi")
-    multi_launches += 1
+    multi_launches.add()
     return out

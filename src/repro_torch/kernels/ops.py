@@ -22,7 +22,7 @@ from repro_torch.kernels import lower_bound as _lb
 from repro_torch.kernels import paa_isax as _pi
 from repro_torch.kernels import ref as _ref
 
-# name -> (wrapper module, the module attribute that counts its launches)
+# name -> (wrapper module, its attribute: the kernel's LaunchCounter)
 KERNELS = {
     "paa_isax": (_pi, "launches"),
     "lower_bound_sq_batch": (_lb, "launches"),
@@ -47,13 +47,14 @@ def _use_kernel(t: torch.Tensor, impl: str) -> bool:
 
 def launch_counts() -> dict:
     """Kernel launches per kernel since :func:`reset_launch_counts`."""
-    return {name: getattr(mod, attr) for name, (mod, attr) in KERNELS.items()}
+    return {name: getattr(mod, attr).value
+            for name, (mod, attr) in KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0."""
     for mod, attr in KERNELS.values():
-        setattr(mod, attr, 0)
+        getattr(mod, attr).reset()
 
 
 def lower_bound_sq(

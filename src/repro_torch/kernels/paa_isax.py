@@ -18,13 +18,12 @@ import torch
 
 from repro_torch.kernels import _build
 
-launches = 0  # kernel launches since the caller last set it to 0
+launches = _build.LaunchCounter()  # launches since the last reset
 
 
 def paa_isax_cuda(series: torch.Tensor, breakpoints: torch.Tensor,
                   segments: int, normalize: bool = True) -> tuple:
     """Launch the kernel on CUDA tensors; returns (sax uint8, paa f32)."""
-    global launches
     _build.require(series, "series", torch.float32, 2)
     _build.require(breakpoints, "breakpoints", torch.float32, 1)
     _build.same_device(series, breakpoints)
@@ -46,5 +45,5 @@ def paa_isax_cuda(series: torch.Tensor, breakpoints: torch.Tensor,
         paa.data_ptr(), b, n, segments, breakpoints.numel(), int(normalize),
         _build.stream_of(series))
     _build.check(err, "paa_isax")
-    launches += 1
+    launches.add()
     return sax, paa

@@ -399,3 +399,125 @@ def test_cuda_tier_arrays_default_to_the_card(cuda_device):
 
     fac, bud = tier_arrays([Tier.epsilon(0.5), Tier.budget(3)])
     assert fac.device.type == bud.device.type == "cuda"
+
+
+# --- The disk path: pipelined build, live durable store, cold tier. ---
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["paris+", "paris", "serial"])
+def test_cuda_pipeline_matches_build_index_and_cpu(cuda_device, tmp_path,
+                                                   mode):
+    from repro_torch.core import PipelineBuilder, SeriesSource, build_index
+
+    raw = random_walk(6000, 128, seed=161)
+    src = SeriesSource.from_array(raw, chunk_series=700)
+    tops.reset_launch_counts()
+    on_card, stats = PipelineBuilder(
+        mode=mode, n_workers=3, mem_limit_series=1500,
+        workdir=str(tmp_path / "card"), device=cuda_device).build(src)
+    # three workers launch at once; the count is exact
+    assert tops.launch_counts()["paa_isax"] == src.num_chunks
+    assert stats.epochs == 3 and stats.chunks == src.num_chunks
+    one_shot = build_index(raw, device=cuda_device)
+    on_cpu, _ = PipelineBuilder(
+        mode=mode, mem_limit_series=1500, workdir=str(tmp_path / "cpu"),
+        device="cpu").build(src)
+    for name in ("sax", "pos", "bucket_offsets", "raw"):
+        assert torch.equal(getattr(on_card, name), getattr(one_shot, name))
+        assert torch.equal(getattr(on_card, name).cpu(),
+                           getattr(on_cpu, name)), name
+    for epoch in ("e0", "e1", "e2"):
+        for name in ("keys.npy", "sax.npy", "pos.npy"):
+            assert ((tmp_path / "card" / epoch / name).read_bytes()
+                    == (tmp_path / "cpu" / epoch / name).read_bytes())
+
+
+def _live_answers(dev, workdir, raw, queries):
+    """One durable store's answers along appends, folds, recovery and
+    demotion; with the launch counts of the live phase."""
+    from repro_torch.core import (CompactionPolicy, IngestPipeline,
+                                  MutableIndex, build_index)
+
+    out = {}
+    m = MutableIndex(build_index(raw[:2000], device=dev), workdir=workdir,
+                     device=dev)
+    tops.reset_launch_counts()
+    pipe = IngestPipeline(m, chunk_series=500)
+    pipe.append(raw[2000:4000])
+    m.maybe_compact(CompactionPolicy(max_deltas=4))  # minor: the 4 deltas
+    m.append(raw[4000:4500])
+    out["appends"] = m.exact_knn_batch(queries, k=8, round_size=256)
+    out["counts"] = tops.launch_counts()
+    m.append(raw[4500:5000])
+    m.compact("minor")
+    m.compact("major")
+    out["major"] = m.exact_knn_batch(queries, k=8, round_size=256)
+    del m
+    r = MutableIndex.recover(workdir, device=dev)
+    out["recover"] = r.exact_knn_batch(queries, k=8, round_size=256)
+    r.demote()
+    out["cold"] = r.exact_knn_batch(queries, k=8, round_size=256)
+    return out
+
+
+@pytest.mark.cuda
+def test_cuda_live_store_matches_cpu(cuda_device, tmp_path):
+    raw = random_walk(5000, 128, seed=171)
+    queries = random_walk(8, 128, seed=172)
+    card = _live_answers(cuda_device, str(tmp_path / "card"), raw, queries)
+    cpu = _live_answers(torch.device("cpu"), str(tmp_path / "cpu"), raw,
+                        queries)
+    for stage in ("appends", "major", "recover", "cold"):
+        (d, p), (d0, p0) = card[stage], cpu[stage]
+        assert torch.equal(p.cpu(), p0), stage
+        torch.testing.assert_close(d.cpu(), d0, rtol=1e-5, atol=1e-5)
+    # On the card the folded, recovered and demoted stores answer bit for
+    # bit alike: the same rows meet the same kernels, from memory, from
+    # files or from the cold tier.
+    for stage in ("recover", "cold"):
+        assert torch.equal(card[stage][0], card["major"][0]), stage
+        assert torch.equal(card[stage][1], card["major"][1]), stage
+    counts = card["counts"]
+    assert counts["paa_isax"] == 5  # one per appended chunk
+    assert counts["lower_bound_sq_multi"] == 1 and counts["euclid_sq"] > 0
+    assert cpu["counts"]["paa_isax"] == 0  # the CPU runs the plain versions
+
+
+@pytest.mark.cuda
+def test_cuda_cold_gather_stages_rows_bitwise(cuda_device, tmp_path):
+    from repro_torch.core import BlockCache, build_index, coldtier
+    from repro_torch.core.build_pipeline import keys_to_u64, refine_key
+    from repro_torch.core.search import exact_knn_batch
+
+    raw = random_walk(7000, 128, seed=181)
+    queries = random_walk(8, 128, seed=182)
+    index = build_index(raw, device=cuda_device)
+    workdir = str(tmp_path)
+    pos = index.pos.cpu().numpy()
+    ref = coldtier.spill_cold_component(
+        workdir, "e0", keys_to_u64(refine_key(index.sax, 4, 256)),
+        index.sax.cpu().numpy(), pos, index.raw.cpu().numpy()[pos], base=0,
+        series_length=128)
+    shard = coldtier.load_cold_shard(
+        workdir, ref, cache=BlockCache(block_rows=16), segments=16,
+        cardinality=256, device=cuda_device)
+    qs = tx.znorm(torch.from_numpy(queries).to(cuda_device))
+    view = coldtier._cold_view(shard, leaf_cap=256)
+    rng = np.random.default_rng(183)
+    per_query = torch.from_numpy(
+        rng.integers(-1, 7000, size=(8, 300)).astype(np.int32)).to(cuda_device)
+    keep = torch.from_numpy(rng.random((8, 300)) < 0.3).to(cuda_device)
+    for positions in (per_query, per_query[0]):  # (Q, R) and shared (R,)
+        want = tops.euclid_sq_gather(qs, index.raw, positions)
+        for mask in (torch.ones_like(keep), keep):
+            got = view.distances(qs, positions, "auto", mask)
+            assert torch.equal(got[mask], want[mask])
+    tops.reset_launch_counts()
+    got = coldtier.cold_exact_knn_batch(shard, queries, k=8, round_size=256,
+                                        stats=True)
+    assert tops.launch_counts()["euclid_sq"] > 0
+    want = exact_knn_batch(index, queries, k=8, round_size=256, stats=True)
+    for g, w in zip(got[:4], want[:4]):
+        assert torch.equal(g, w)
+    assert got[4] == want[4]

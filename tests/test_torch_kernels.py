@@ -355,3 +355,40 @@ def test_build_sources_exist_and_name_their_entries():
     exported = "".join((_build.CSRC / s).read_text() for s in _build.SOURCES)
     for entry in _build._SIGNATURES:
         assert f'extern "C" int {entry}(' in exported
+
+
+def test_launch_counts_exact_from_several_threads():
+    """Every wrapper counts its launches through a lock-guarded counter:
+    threads counting at once (pipeline workers, concurrent appenders)
+    lose none. Two threads per kernel, each counting 4000 launches, with
+    the interpreter switching threads as often as it can."""
+    import sys
+    import threading
+
+    counters = {name: getattr(mod, attr)
+                for name, (mod, attr) in tops.KERNELS.items()}
+    assert all(isinstance(c, _build.LaunchCounter) for c in counters.values())
+    tops.reset_launch_counts()
+    per_thread = 4000
+    start = threading.Barrier(2 * len(counters))
+
+    def launch(counter):
+        start.wait(timeout=30)
+        for _ in range(per_thread):
+            counter.add()
+
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=launch, args=(c,))
+                   for c in counters.values() for _ in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+            assert not t.is_alive()
+    finally:
+        sys.setswitchinterval(switch)
+    assert tops.launch_counts() == {name: 2 * per_thread for name in counters}
+    tops.reset_launch_counts()
+    assert set(tops.launch_counts().values()) == {0}
