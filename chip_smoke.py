@@ -29,6 +29,23 @@ Phases, each of which raises (exit code 1) on a failed check:
                 at the shapes the paths gave it, timed with CUDA events
                 beside its bound (the larger of bytes over 3.35 TB/s and
                 fp32 operations over 67 TFLOP/s, the H100 SXM peaks);
+  serve       — the serving fabric (``repro_torch.serving``) over phase 4's
+                index and queries, the queries sent as host rows: (a) a
+                ``ShardedSearchRouter`` of 4 file-order shards (views of
+                phase 4's raw) x 2 replicas, its daemons started, fed by 4
+                client threads; (b) ``search_batch`` at epsilon 0.1 and
+                budget 2, and a ``TierDegradePolicy`` router whose
+                deadline-bearing requests come back degraded; (c)
+                ``FaultInjector`` faults: a failed replica (retried), a
+                slow replica (hedged), a blackholed shard (every future
+                fails with ``DeadlineExceededError`` by its deadline) and
+                a failed shard (``ShardFailedError`` naming it, caused by
+                the injected fault); (d) an ``IngestingRouter`` over
+                ``build_index`` of the first half of phase 4's series (made
+                again from ``--seed``), the other half appended as card
+                tensors while a client thread streams queries, then a full
+                fold. Every exact answer must equal phase 4's bit for bit;
+                peak device memory under 70 GiB;
   7. packed   — phase 4's index is freed (its answers kept), the same
                 series are made again from ``--seed``, cut into five
                 contiguous components (a base, two runs, two deltas; no
@@ -50,16 +67,20 @@ Phases, each of which raises (exit code 1) on a failed check:
                 minor folds by ``maybe_compact``, a major fold), queried
                 fused after the appends and again after the fold;
                 ``recover`` from its directory; ``demote`` and the cold
-                query. Every index must equal ``build_index`` over the same
-                series, and every answer that index's (checked against an
-                on-card oracle) bit for bit; at phase 4's N, phase 4's
-                index and answers. Peak device memory under 70 GiB.
+                query, then the same queries through an ``IngestingRouter``
+                over the demoted store (its cold shard routed), which must
+                answer as the cold query did. Every index must equal
+                ``build_index`` over the same series, and every answer that
+                index's (checked against an on-card oracle) bit for bit; at
+                phase 4's N, phase 4's index and answers. Peak device
+                memory under 70 GiB.
 
-Phases 4, 5, 7 and 8 each drive a path with every launch count set to 0
-just before and read just after; each kernel of a path must have launched
-on it, and a kernel's ``launches`` are its counts summed over those paths.
-The last three lines of standard output are the kernels' JSON object, the
-``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
+Phases 4, 5, serve, 7 and 8 each drive a path with every launch count set
+to 0 just before and read just after; each kernel of a path must have
+launched on it, and a kernel's ``launches`` are its counts summed over
+those paths. The last four lines of standard output are the serve phase's
+JSON object, the kernels' JSON object, the ``nvidia-smi`` name and power
+limit, and ``{"ok": true, "device": ...}``.
 It imports no JAX: the port is the package ``repro_torch`` under ``src/``.
 """
 
@@ -67,6 +88,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import pathlib
 import re
@@ -98,6 +120,7 @@ KERNEL_ROWS = {  # name -> (source, TPU kernel it replaces)
 PATH_KERNELS = {
     "full": ("paa_isax", "lower_bound_sq_batch", "euclid_sq"),
     "baselines": ("lower_bound_sq", "euclid_sq", "euclid_min"),
+    "serve": ("paa_isax", "lower_bound_sq_batch", "euclid_sq"),
     "packed": ("paa_isax", "lower_bound_sq_multi", "euclid_sq"),
     "disk": ("paa_isax", "lower_bound_sq_batch", "lower_bound_sq_multi",
              "euclid_sq"),
@@ -654,6 +677,472 @@ def phase_kernels(full: dict) -> list:
     return rows
 
 
+SERVE_SHARDS = 4  # file-order shards of the serve phase's routers
+SERVE_REPLICAS = 2  # replicas a shard
+SERVE_CLIENTS = 4  # client threads of step (a)
+SERVE_WAIT_S = 120.0  # any one future's timeout: a hang fails the run
+DEADLINE_SLACK_S = 1.0  # how late a deadline may fail its future
+
+
+def submit_all(router, queries, clients: int = 1, **kw) -> tuple:
+    """Every query submitted from ``clients`` threads at once (client c
+    sends rows c, c + clients, ...); returns (the futures' results in row
+    order, wall seconds from the first submit to the last result)."""
+    import threading
+
+    futs = [None] * len(queries)
+
+    def client(c):
+        for i in range(c, len(queries), clients):
+            futs[i] = router.submit(queries[i], **kw)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=SERVE_WAIT_S)
+        expect(not th.is_alive(), "serve: a client thread hung")
+    res = [f.result(timeout=SERVE_WAIT_S) for f in futs]
+    return res, time.perf_counter() - t0
+
+
+def stacked(res) -> tuple:
+    """((Q, k) dists, (Q, k) positions) of a list of per-query answers."""
+    import numpy as np
+
+    return np.stack([r[0] for r in res]), np.stack([r[1] for r in res])
+
+
+def finite(x):
+    """``x`` as a float, or None where it is not finite (JSON has no inf)."""
+    x = float(x)
+    return x if x == x and abs(x) != float("inf") else None
+
+
+def router_figures(s: dict) -> dict:
+    keys = ("batches", "batch_size_avg", "latency_ms_avg", "latency_ms_max",
+            "merges", "merge_ms_avg", "merge_ms_max", "qps", "retries",
+            "hedges", "hedges_won", "hedges_denied", "deadline_expired",
+            "shard_failures", "degraded", "blackholed")
+    return {k: s[k] for k in keys}
+
+
+def phase_serve(full: dict) -> tuple:
+    """The serving fabric over phase 4's index: (a) the replicated router
+    fed by client threads, (b) tiers and degradation, (c) injected faults,
+    (d) the live-ingest router. Returns (the path's launch counts, the
+    figures of the ``{"serve": ...}`` line)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import Tier, build_sharded_index
+    from repro_torch.core.search import make_batch_engine, pow2_bucket
+    from repro_torch.kernels import ops
+    from repro_torch.serving import ShardedSearchRouter, TierDegradePolicy
+
+    index, args, qz = full["index"], full["args"], full["qz"]
+    k, rs = args.k, 4096
+    host_q = full["queries"].cpu().numpy()  # clients send host rows
+    want_d, want_p = full["d"].cpu().numpy(), full["p"].cpu().numpy()
+    n_q = host_q.shape[0]
+    fig = {}
+    log(f"[serve] N={index.num_series} Q={n_q} k={k} round={rs}: "
+        f"{SERVE_SHARDS} shards x {SERVE_REPLICAS} replicas, max_batch 64")
+
+    def same(res, what):
+        d, p = stacked(res)
+        expect(np.array_equal(p, want_p), f"serve {what}: positions differ "
+               "from phase 4's")
+        expect(np.array_equal(d, want_d), f"serve {what}: distances not "
+               "bitwise equal to phase 4's")
+
+    def certified(d, p, ach, eps, what):
+        """Each squared distance within (1 + achieved)^2 of the exact one in
+        its column, at the distance of its position; achieved <= eps."""
+        expect(np.all(ach <= eps + 1e-5), f"serve {what}: achieved epsilon "
+               f"{ach.max()} > {eps}")
+        fac = (1.0 + ach.astype(np.float64))[:, None] ** 2
+        bound = np.where(np.isfinite(fac), fac * want_d, np.inf)
+        expect(np.all(d <= bound * (1 + 1e-5)), f"serve {what}: an answer "
+               "outside its certificate")
+        expect(np.all(d >= want_d * (1 - 1e-5)), f"serve {what}: below exact")
+        pos = torch.from_numpy(p).to(index.device).long()
+        direct = ((index.raw[pos] - qz[:, None, :]) ** 2).sum(dim=-1)
+        expect(torch.allclose(direct.cpu(), torch.from_numpy(d), rtol=1e-5,
+                              atol=1e-5),
+               f"serve {what}: a position is not at its reported distance")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()  # the serve path starts here
+    sharded = build_sharded_index(index, SERVE_SHARDS)  # views of the raw
+    knobs = dict(k=k, replicas=SERVE_REPLICAS, max_batch=64, round_size=rs)
+
+    def serving(**kw):
+        router = ShardedSearchRouter(sharded, **knobs, **kw)
+        router.start()
+        return router
+
+    # (a) Sharded, replicated, concurrent.
+    router = serving()
+    try:
+        res, t_a = submit_all(router, host_q, clients=SERVE_CLIENTS)
+    finally:
+        router.stop()
+    same(res, "(a)")
+    fig["a"] = dict(wall_s=t_a, answers_per_s=n_q / t_a,
+                    **router_figures(router.stats()))
+    log(f"[serve] (a) {n_q} answers from {SERVE_CLIENTS} client threads in "
+        f"{t_a:.4f} s, equal to phase 4's bit for bit; {fig['a']}")
+
+    # (b) Tiers through the fan-out, then degradation by deadline slack.
+    router = serving()
+    try:
+        for tier, what in ((Tier.epsilon(0.1), "epsilon 0.1"),
+                           (Tier.budget(2), "budget 2")):
+            (d, p, ach), t = timed(lambda: router.search_batch(host_q,
+                                                               tier=tier))
+            certified(d, p, ach, 0.1 if tier.kind == "epsilon" else np.inf,
+                      what)
+            fig[what] = dict(s=t, achieved_max=finite(ach.max()))
+            log(f"[serve] (b) {what}: {t:.4f} s, achieved max "
+                f"{ach.max():.5f}, every answer within its certificate")
+    finally:
+        router.stop()
+    router = serving(degrade=TierDegradePolicy(
+        epsilon_slack_ms=1e6, budget_slack_ms=1.0, epsilon=0.25))
+    try:
+        res, t = submit_all(router, host_q, deadline_ms=60_000.0)
+    finally:
+        router.stop()
+    expect(all(len(r) == 3 for r in res), "serve: degraded answers must "
+           "carry their achieved epsilon")
+    d, p = stacked(res)
+    certified(d, p, np.array([r[2] for r in res]), 0.25, "degraded")
+    s = router.stats()
+    expect(s["degraded"] == n_q, f"serve: {s['degraded']} degraded, not {n_q}")
+    fig["degraded"] = dict(s=t, degraded=s["degraded"],
+                           achieved_max=s["achieved_eps_max"])
+    log(f"[serve] (b) degradation: {n_q} deadline-bearing requests in "
+        f"{t:.4f} s, {s['degraded']} degraded to epsilon 0.25 (achieved max "
+        f"{s['achieved_eps_max']:.5f})")
+
+    # (c) Faults: rerouted, hedged, expired, typed.
+    fig["faults"] = serve_faults(serving, host_q, same, fig["a"])
+
+    # (d) The live-ingest router.
+    fig["ingest"], chunk = serve_ingest(full, host_q, same)
+    counts = path_counts("serve")  # the serve path ends here
+
+    # Each kernel of the path against its plain version at the path's
+    # shapes (after the counts were read: these launches do not count).
+    cohort = min(n_q, pow2_bucket(math.ceil(fig["a"]["batch_size_avg"])))
+    serve_kernel_checks(sharded.shards[0], host_q[:cohort], chunk, k, rs)
+    del chunk
+
+    # The layer below the router: the four shard engines called one after
+    # another from this thread on all the queries, with no threads,
+    # cohorts or merges (after the counts: not part of the path).
+    engines = [make_batch_engine(sh, k=k, round_size=rs)
+               for sh in sharded.shards]
+    _, t_serial = timed(lambda: [e(host_q) for e in engines])
+    fig["a"]["shard_engines_serial_s"] = t_serial
+    log(f"[serve] the {SERVE_SHARDS} shard engines one after another on all "
+        f"{n_q} queries: {t_serial:.4f} s (the router: {t_a:.4f} s)")
+    # (a) again with one replica a shard and a wait no cohort reaches: each
+    # shard answers all the queries as one cohort (not part of the path).
+    router = ShardedSearchRouter(sharded, k=k, replicas=1, max_batch=n_q,
+                                 max_wait_ms=1e3 * SERVE_WAIT_S,
+                                 round_size=rs)
+    router.start(tick_ms=0.5)  # the daemons' tick at the default wait
+    try:
+        res, t_one = submit_all(router, host_q, clients=SERVE_CLIENTS)
+    finally:
+        router.stop()
+    same(res, "one replica, one cohort a shard")
+    s = router.stats()
+    fig["one_cohort"] = dict(wall_s=t_one, batches=s["batches"],
+                             batch_size_avg=s["batch_size_avg"],
+                             latency_ms_max=s["latency_ms_max"])
+    log(f"[serve] one replica a shard, one cohort of {n_q} a shard: {n_q} "
+        f"answers from {SERVE_CLIENTS} client threads in {t_one:.4f} s; "
+        f"{fig['one_cohort']}")
+    del engines, sharded
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[serve] peak device memory {peak:.2f} GiB (limit "
+        f"{MAX_PEAK_GIB:.0f})")
+    expect(peak < MAX_PEAK_GIB, f"serve peak memory {peak:.2f} GiB")
+    fig["peak_gib"] = peak
+    fig["launches"] = counts
+    return counts, fig
+
+
+def serve_kernel_checks(shard, cohort_q, chunk, k: int, rs: int) -> None:
+    """The serve path's kernels against their plain versions at its shapes:
+    ``lower_bound_sq_batch`` on one cohort's padded PAA over a router shard
+    and over one appended chunk, ``euclid_sq`` on that cohort's (Q, rs)
+    gather (the shard engine's answers, then the first round's candidates),
+    ``paa_isax`` on one appended chunk as Stage 2 calls it."""
+    import torch
+
+    from repro_torch.core import isax
+    from repro_torch.core.search import (_queries, _smallest,
+                                         make_batch_engine, select_len)
+    from repro_torch.kernels import ops
+
+    n, w, card = shard.series_length, shard.segments, shard.cardinality
+    dev = shard.device
+    q_n = cohort_q.shape[0]
+
+    # paa_isax: z-norm, then the kernel without its own z-norm.
+    x = isax.znorm(chunk)
+    bp = isax.gaussian_breakpoints(card, dev)
+    got = ops.paa_isax(x, bp, w, normalize=False)
+    plain = ops.paa_isax(x, bp, w, normalize=False, impl="ref")
+    expect(all(torch.equal(g, e) for g, e in zip(got, plain)),
+           "serve: paa_isax on an appended chunk differs from its plain "
+           "version")
+    chunk_sax = got[0]
+    del x, got, plain
+
+    # lower_bound_sq_batch: the engine's pass, as its round loop starts it.
+    qs = isax.znorm(_queries(shard, cohort_q))
+    qps = isax.paa(qs, w)
+    bpp = isax.padded_breakpoints(card, dev)
+    for sax, what in ((chunk_sax, "an appended chunk"),
+                      (shard.sax, "a router shard")):
+        lb = ops.lower_bound_sq_batch(qps, sax, bpp, n)
+        expect(torch.equal(lb, ops.lower_bound_sq_batch(
+            qps, sax, bpp, n, impl="ref")), f"serve: lower_bound_sq_batch "
+            f"over {what} not bitwise equal to its plain version")
+    del chunk_sax
+
+    # euclid_sq: the shard engine's answers to the cohort, then the first
+    # round's candidates, gathered from the shard's rows.
+    d_e, p_e = make_batch_engine(shard, k=k, round_size=rs)(cohort_q)
+    order, _ = _smallest(lb, select_len(shard.num_series, rs))
+    del lb
+    cand = shard.pos[order[:, :rs - k].long()]
+    del order
+    pos = torch.cat([p_e.to(cand.dtype), cand], dim=1).contiguous()
+    got = ops.euclid_sq_gather(qs, shard.raw, pos)
+    expect(torch.equal(got[:, :k], d_e), "serve: euclid_sq differs from the "
+           "shard engine's answers")
+    plain = ops.euclid_sq_gather(qs, shard.raw, pos, impl="ref")
+    expect(torch.allclose(got, plain, rtol=1e-5, atol=1e-5),
+           "serve: euclid_sq differs from its plain version")
+    log(f"[serve] paa_isax (appended chunk of {chunk.shape[0]}), "
+        f"lower_bound_sq_batch ({q_n}-query cohort over a chunk and over a "
+        f"shard of {shard.num_series} rows) bitwise equal to their plain "
+        f"versions; euclid_sq ({q_n} x {pos.shape[1]} gather) bitwise equal "
+        "to the shard engine's answers and within 1e-5 of its plain version")
+
+
+def serve_faults(serving, host_q, same, healthy: dict) -> dict:
+    """Step (c): each fault on a fresh router of the same shape."""
+    from repro_torch.serving import (DeadlineExceededError, FaultInjector,
+                                     InjectedFaultError, ShardFailedError)
+
+    out = {}
+    inj = FaultInjector()
+    inj.fail_replica(0, 0)
+    router = serving(fault_injector=inj)
+    try:
+        res, t = submit_all(router, host_q)
+    finally:
+        router.stop()
+    same(res, "(c) failed replica")
+    s = router.stats()
+    expect(s["retries"] >= 1, "serve: the failed replica was never retried")
+    out["failed_replica"] = dict(s=t, retries=s["retries"],
+                                 fired=inj.fired()["replica:0:0:fail"])
+    log(f"[serve] (c) fail_replica(0, 0): {t:.4f} s, {s['retries']} retries,"
+        f" answers bitwise")
+
+    # A hedge fires past the healthy router's slowest sub-query; the slow
+    # replica's first cohort answers long after the hedge could have.
+    hedge_ms = max(50.0, 1.5 * healthy["latency_ms_max"])
+    slow_ms = 4.0 * hedge_ms + 1000.0
+    inj = FaultInjector()
+    inj.slow_replica(1, 0, ms=slow_ms, times=1)
+    router = serving(fault_injector=inj, hedge_ms=hedge_ms, hedge_budget=1.0)
+    try:
+        res, t = submit_all(router, host_q)
+    finally:
+        router.stop()
+    same(res, "(c) slow replica")
+    s = router.stats()
+    expect(s["hedges_won"] >= 1, "serve: no hedge beat the slow replica")
+    out["slow_replica"] = dict(s=t, hedge_ms=hedge_ms, slow_ms=slow_ms,
+                               hedges=s["hedges"], hedges_won=s["hedges_won"])
+    log(f"[serve] (c) slow_replica(1, 0, ms={slow_ms:.1f}), hedge_ms "
+        f"{hedge_ms:.1f}: {t:.4f} s, hedges {s['hedges']}, won "
+        f"{s['hedges_won']}, answers bitwise")
+
+    # A blackholed shard: every future fails at its deadline, none hangs.
+    deadline_ms = max(1000.0, 2.0 * healthy["latency_ms_max"])
+    inj = FaultInjector()
+    inj.blackhole_replica(2)
+    router = serving(fault_injector=inj)
+    late = []
+    try:
+        futs = []
+        for q in host_q[:8]:
+            t0 = time.monotonic()
+            f = router.submit(q, deadline_ms=deadline_ms)
+            f.add_done_callback(
+                lambda _, t0=t0: late.append(time.monotonic() - t0))
+            futs.append(f)
+        for f in futs:
+            exc = f.exception(timeout=deadline_ms / 1e3 + SERVE_WAIT_S)
+            expect(type(exc) is DeadlineExceededError, f"serve: a blackholed "
+                   f"request ended with {exc!r}, not DeadlineExceededError")
+    finally:
+        router.stop()
+    worst = max(late) - deadline_ms / 1e3
+    expect(len(late) == 8 and worst <= DEADLINE_SLACK_S,
+           f"serve: a deadline failed its future {worst:.3f} s late")
+    out["blackholed_shard"] = dict(deadline_ms=deadline_ms, late_s_max=worst,
+                                   expired=router.stats()["deadline_expired"])
+    log(f"[serve] (c) blackhole_replica(2), deadline {deadline_ms:.1f} ms: "
+        f"8 of 8 DeadlineExceededError, at most {worst:.4f} s after the "
+        "deadline")
+
+    # A failed shard: typed, named, caused by the injected fault.
+    inj = FaultInjector()
+    inj.fail_replica(3)
+    router = serving(fault_injector=inj)
+    try:
+        futs = [router.submit(q) for q in host_q[:8]]
+        for f in futs:
+            try:
+                f.result(timeout=SERVE_WAIT_S)
+            except ShardFailedError as e:
+                expect(e.sid == 3, f"serve: ShardFailedError names shard "
+                       f"{e.sid}, not 3")
+                expect(isinstance(e.__cause__, InjectedFaultError),
+                       f"serve: a shard failed of {e.__cause__!r}, not the "
+                       "injected fault")
+                continue
+            raise CheckFailed("serve: answered although shard 3 failed")
+    finally:
+        router.stop()
+    out["failed_shard"] = dict(shard_failures=router.stats()[
+        "shard_failures"])
+    log("[serve] (c) fail_replica(3): 8 of 8 ShardFailedError(sid=3) caused "
+        "by InjectedFaultError")
+    return out
+
+
+def serve_ingest(full: dict, host_q, same) -> tuple:
+    """Step (d): a live-ingest router grown from half of phase 4's series
+    to all of them by card-tensor appends, queried as it grows. Returns
+    (its figures, the first appended chunk)."""
+    import itertools
+    import threading
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import build_index
+    from repro_torch.serving import IngestingRouter
+
+    args, dev = full["args"], full["qz"].device
+    n_series, n = full["index"].raw.shape
+    k, rs = args.k, 4096
+    want_d = full["d"].cpu().numpy()
+    half = n_series // 2
+    batch = min(APPEND_BATCH, n_series // 16)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    chunks = walk_chunks(n_series, n, gen, dev)  # phase 4's series again
+    base_raw = torch.empty((half, n), dtype=torch.float32, device=dev)
+    tail = None
+    for s, chunk in chunks:
+        base_raw[s:min(s + chunk.shape[0], half)] = chunk[:half - s]
+        if s + chunk.shape[0] >= half:
+            tail = chunk[half - s:]
+            break
+    base, t_base = timed(lambda: build_index(base_raw, device=dev))
+    del base_raw
+
+    def appended():  # made one chunk at a time, as the appends take them
+        for part in itertools.chain([tail], (c for _, c in chunks)):
+            for s in range(0, part.shape[0], batch):
+                yield part[s:s + batch]
+
+    svc = IngestingRouter(base, SERVE_SHARDS, k=k, replicas=SERVE_REPLICAS,
+                          max_batch=64, round_size=rs,
+                          compaction_policy=None)
+    del base
+    svc.start()
+    stop = threading.Event()
+    streamed, errors = [], []
+
+    def stream():
+        i = 0
+        try:
+            while not stop.is_set():
+                d, p = svc.submit(host_q[i]).result(timeout=SERVE_WAIT_S)
+                streamed.append((i, d, p))
+                i = (i + 1) % len(host_q)
+        except Exception as e:  # noqa: BLE001 — surfaced as a failed check
+            errors.append(e)
+
+    first = None  # one appended chunk, for the kernel checks
+    try:
+        client = threading.Thread(target=stream)
+        client.start()
+        t0 = time.perf_counter()
+        for part in appended():
+            svc.append(part)  # a tensor on the card: no copy
+            if first is None:
+                first = part
+        torch.cuda.synchronize()
+        t_app = time.perf_counter() - t0
+        stop.set()
+        client.join(timeout=SERVE_WAIT_S)
+        expect(not client.is_alive(), "serve: the streaming client hung")
+        if errors:
+            raise errors[0]
+        # An answer over a prefix of the series is never better than the
+        # whole set's, column by column (the same per-series distances).
+        for i, d, p in streamed:
+            expect(np.all(d >= want_d[i]) and np.all(p < n_series),
+                   f"serve (d): streamed answer to query {i} is better than "
+                   "the exact one over all the series")
+        shards = svc.stats()["num_shards"]
+        (d, p), t_q = timed(lambda: svc.search_batch(host_q))
+        same(list(zip(d, p)), "(d) after the appends")
+        res, t_fold = timed(lambda: svc.compact_now("full"))
+        expect(res is not None and res.base.num_series == n_series,
+               "serve (d): the full fold")
+        (d, p), t_q2 = timed(lambda: svc.search_batch(host_q))
+        same(list(zip(d, p)), "(d) after the full fold")
+        s = svc.stats()
+    finally:
+        stop.set()
+        svc.stop()
+    out = dict(base_build_s=t_base, appends=s["ingest"]["appends"],
+               append_s=t_app, series_per_s=(n_series - half) / t_app,
+               streamed=len(streamed), shards_before_fold=shards,
+               query_s=t_q, fold_s=t_fold, merge_s=res.merge_time,
+               stall_s=res.stall_time, query_after_fold_s=t_q2,
+               shards_after_fold=s["num_shards"])
+    log(f"[serve] (d) base of {half} built in {t_base:.3f} s; "
+        f"{out['appends']} card-tensor appends of {batch} in {t_app:.3f} s "
+        f"({out['series_per_s']:.0f} series/s) while {len(streamed)} "
+        f"streamed answers came back; {shards} shards: search_batch "
+        f"{t_q:.4f} s, equal to phase 4's bit for bit; full fold "
+        f"{t_fold:.3f} s (merge {res.merge_time:.3f} s, stall "
+        f"{res.stall_time:.6f} s), {s['num_shards']} shards: search_batch "
+        f"{t_q2:.4f} s, equal to phase 4's bit for bit")
+    return out, first
+
+
 def component_sizes(n_series: int) -> list:
     """Five contiguous components: a base of ~N/2, runs of ~N/4 and ~N/8,
     and two deltas of the rest; no size a multiple of the 128-row block."""
@@ -885,6 +1374,7 @@ def _disk_steps(full, root, n_series, same_n, dev, n, k, rs) -> dict:
                                   SeriesSource, build_index, coldtier, isax)
     from repro_torch.core.search import exact_knn_batch
     from repro_torch.kernels import ops
+    from repro_torch.serving import IngestingRouter
 
     args, queries, qz = full["args"], full["queries"], full["qz"]
 
@@ -1051,7 +1541,6 @@ def _disk_steps(full, root, n_series, same_n, dev, n, k, rs) -> dict:
     cache = r.stats()["cold_cache"]
     (d, p), t_q = timed(lambda: r.exact_knn_batch(
         queries, k=k, round_size=rs, leaf_cap=256))
-    counts = path_counts("disk")  # the disk path ends here
     same_answers(d, p, "cold tier")
     after = r.stats()["cold_cache"]
     raw_leaf = shard.reader.total_bytes
@@ -1068,6 +1557,23 @@ def _disk_steps(full, root, n_series, same_n, dev, n, k, rs) -> dict:
         f"% for the batch; block cache hits {after['hits'] - cache['hits']},"
         f" misses {after['misses'] - cache['misses']}; {dir_bytes(store)} "
         f"bytes on disk")
+    # The demoted store behind the router: its cold shard gets a
+    # disk-backed engine of its own, over the block cache the cold query
+    # warmed.
+    w0 = written()
+    svc = IngestingRouter(r, k=k, round_size=rs, compaction_policy=None)
+    try:
+        (dr, pr), t_r = timed(lambda: svc.search_batch(queries))
+    finally:
+        svc.stop()
+    expect(np.array_equal(pr, p.cpu().numpy())
+           and np.array_equal(dr, d.cpu().numpy()),
+           "disk: the cold shard through the router differs from the cold "
+           "query")
+    counts = path_counts("disk")  # the disk path ends here
+    log(f"[disk] (e) the cold shard through IngestingRouter: search_batch "
+        f"{t_r:.3f} s, equal to the cold query bit for bit; wrote "
+        f"{io_delta(w0)}")
 
     # Each kernel of the path against its plain version at the path's
     # shapes (after the counts were read: these launches do not count).
@@ -1158,6 +1664,7 @@ def main(argv=None) -> int:
     full = phase("full", phase_full, args, dev)
     base_counts = phase("baselines", phase_baselines, full)
     rows = phase("kernels", phase_kernels, full)
+    serve_counts, serve_fig = phase("serve", phase_serve, full)
     index = full["index"]  # phase 8 is held to phase 4's index: host copies
     full["host"] = dict(sax=index.sax.cpu(), pos=index.pos.cpu(),
                         offsets=index.bucket_offsets.cpu())
@@ -1167,11 +1674,13 @@ def main(argv=None) -> int:
     disk_counts = phase("disk", phase_disk, full)
     for row in rows:  # launches: summed over the driven paths
         row["launches"] = sum(c[row["name"]] for c in (
-            full["counts"], base_counts, packed_counts, disk_counts))
+            full["counts"], base_counts, serve_counts, packed_counts,
+            disk_counts))
         expect(row["launches"] > 0, f"{row['name']} never launched")
     expect(sorted(r["name"] for r in rows) == sorted(KERNEL_ROWS),
            "the kernels line must list every kernel")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"serve": serve_fig}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -51,6 +51,11 @@ from repro_torch.core import (
     pack_components,
     packed_seed,
 )
+from repro_torch.serving import (
+    IngestingRouter,
+    SearchRequestBatcher,
+    ShardedSearchRouter,
+)
 
 __all__ = [
     "index_from_arrays", "index_to_arrays", "packed_from_arrays",
@@ -66,4 +71,5 @@ __all__ = [
     "MutableIndex", "PipelineBuilder", "SeriesSource", "build_delta_shard",
     "cold_exact_knn_batch", "cold_exact_search_batch",
     "cold_knn_batch_tiered", "load_cold_shard", "make_cold_batch_engine",
+    "IngestingRouter", "SearchRequestBatcher", "ShardedSearchRouter",
 ]

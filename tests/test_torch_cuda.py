@@ -521,3 +521,98 @@ def test_cuda_cold_gather_stages_rows_bitwise(cuda_device, tmp_path):
     for g, w in zip(got[:4], want[:4]):
         assert torch.equal(g, w)
     assert got[4] == want[4]
+
+
+def _routed_answers(router, queries, clients=3):
+    """Every query submitted from ``clients`` threads at once; the stacked
+    ((Q, k) dists, (Q, k) positions) as numpy."""
+    import threading
+
+    futs = [None] * len(queries)
+
+    def client(c):
+        for i in range(c, len(queries), clients):
+            futs[i] = router.submit(queries[i])
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=60)
+        assert not th.is_alive()
+    res = [f.result(timeout=60) for f in futs]
+    return np.stack([d for d, _ in res]), np.stack([p for _, p in res])
+
+
+@pytest.mark.cuda
+def test_cuda_router_matches_cpu_router(cuda_device):
+    """Two shards of two replicas over card engines, their daemons and
+    three client threads: the same positions as the same router on the
+    CPU, and bit for bit the card's own single-index answers (the same
+    rows meet the same kernels, whichever replica or cohort they ride)."""
+    from repro_torch.core import build_index
+    from repro_torch.core.search import exact_knn_batch
+    from repro_torch.serving import ShardedSearchRouter
+
+    raw = random_walk(6000, 128, seed=191)
+    queries = random_walk(12, 128, seed=192)
+    answers = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        index = build_index(raw, device=dev)
+        r = ShardedSearchRouter(index, 2, k=8, replicas=2, max_batch=4,
+                                max_wait_ms=2.0, round_size=256)
+        r.start()
+        tops.reset_launch_counts()
+        try:
+            answers[dev.type] = _routed_answers(r, queries)
+        finally:
+            r.stop()
+        answers[dev.type + "_counts"] = tops.launch_counts()
+        answers[dev.type + "_stats"] = r.stats()
+        answers[dev.type + "_direct"] = exact_knn_batch(
+            index, queries, k=8, round_size=256)
+    (d, p), (d0, p0) = answers["cuda"], answers["cpu"]
+    np.testing.assert_array_equal(p, p0)
+    np.testing.assert_allclose(d, d0, rtol=1e-5, atol=1e-5)
+    dd, dp = answers["cuda_direct"]
+    np.testing.assert_array_equal(d, dd.cpu().numpy())
+    np.testing.assert_array_equal(p, dp.cpu().numpy())
+    for name in ("lower_bound_sq_batch", "euclid_sq"):
+        assert answers["cuda_counts"][name] > 0, answers["cuda_counts"]
+        assert answers["cpu_counts"][name] == 0
+    s = answers["cuda_stats"]
+    assert s["answered"] == 2 * len(queries) and s["merges"] == len(queries)
+
+
+@pytest.mark.cuda
+def test_cuda_ingesting_router_card_batches_match_one_shot_build(cuda_device):
+    """Card-tensor appends through the live-ingest router answer as one
+    ``build_index`` over the same series, bit for bit, before and after a
+    full fold; every append runs ``paa_isax`` on the card."""
+    from repro_torch.core import build_index
+    from repro_torch.core.search import exact_knn_batch
+    from repro_torch.serving import IngestingRouter
+
+    raw = torch.from_numpy(random_walk(7000, 128, seed=201)).to(cuda_device)
+    queries = random_walk(8, 128, seed=202)
+    want_d, want_p = exact_knn_batch(build_index(raw, device=cuda_device),
+                                     queries, k=8, round_size=256)
+    svc = IngestingRouter(build_index(raw[:3000], device=cuda_device), 2,
+                          k=8, replicas=2, max_batch=8, round_size=256,
+                          compaction_policy=None)
+    svc.start()
+    try:
+        tops.reset_launch_counts()
+        for s in range(3000, 7000, 1000):
+            assert svc.append(raw[s:s + 1000]) == 1000  # stays on the card
+        assert tops.launch_counts()["paa_isax"] == 4
+        for step in ("appended", "folded"):
+            d, p = _routed_answers(svc, queries)
+            np.testing.assert_array_equal(p, want_p.cpu().numpy())
+            np.testing.assert_array_equal(d, want_d.cpu().numpy())
+            if step == "appended":
+                assert svc.compact_now("full") is not None
+    finally:
+        svc.stop()
+    assert svc.num_series == 7000 and svc.mutable.num_deltas == 0
