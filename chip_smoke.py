@@ -46,6 +46,25 @@ Phases, each of which raises (exit code 1) on a failed check:
                 tensors while a client thread streams queries, then a full
                 fold. Every exact answer must equal phase 4's bit for bit;
                 peak device memory under 70 GiB;
+  mesh        — the mesh (``repro_torch.core.distributed``) over phase 4's
+                index and queries, round and leaf cap from
+                ``repro_torch/configs/paris.py``: (a) ``dist_index_from``
+                into 4 shards of 2^22 rows, 4 ranks spawned on the one card
+                over ``gloo`` (it copies CUDA tensors through the host),
+                each handed its shard by CUDA IPC,
+                ``make_distributed_batch_search`` at k and at 1, positions
+                equal to phase 4's; (b)
+                ``make_distributed_search`` on the first 8 queries with
+                ``select="sort"``, ``"topk"``, ``shared_bsf=False`` and
+                ``batch_queries=8``, positions equal to (a)'s; (c)
+                ``make_distributed_build`` over the first 2^22 series, SAX
+                and root keys bitwise to the plain versions; (d) (a)'s k-NN
+                batch on one ``nccl`` rank. Every rank's answers must agree,
+                the summed peak device memory of the parent and the ranks
+                stay under 70 GiB; launches are summed over the parent and
+                the ranks. Four ranks on one card are not a multi-card
+                figure. Then its four kernels against their plain versions
+                at its shapes (one shard, shared fallback rows);
   7. packed   — phase 4's index is freed (its answers kept), the same
                 series are made again from ``--seed``, cut into five
                 contiguous components (a base, two runs, two deltas; no
@@ -75,12 +94,12 @@ Phases, each of which raises (exit code 1) on a failed check:
                 phase 4's N, phase 4's index and answers. Peak device
                 memory under 70 GiB.
 
-Phases 4, 5, serve, 7 and 8 each drive a path with every launch count set
-to 0 just before and read just after; each kernel of a path must have
-launched on it, and a kernel's ``launches`` are its counts summed over
-those paths. The last four lines of standard output are the serve phase's
-JSON object, the kernels' JSON object, the ``nvidia-smi`` name and power
-limit, and ``{"ok": true, "device": ...}``.
+Phases 4, 5, serve, mesh, 7 and 8 each drive a path with every launch
+count set to 0 just before and read just after; each kernel of a path must
+have launched on it, and a kernel's ``launches`` are its counts summed over
+those paths. The last five lines of standard output are the serve phase's
+JSON object, the mesh phase's, the kernels' JSON object, the
+``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
 It imports no JAX: the port is the package ``repro_torch`` under ``src/``.
 """
 
@@ -123,6 +142,8 @@ PATH_KERNELS = {
     "serve": ("paa_isax", "lower_bound_sq_batch", "euclid_sq"),
     "packed": ("paa_isax", "lower_bound_sq_multi", "euclid_sq"),
     "disk": ("paa_isax", "lower_bound_sq_batch", "lower_bound_sq_multi",
+             "euclid_sq"),
+    "mesh": ("paa_isax", "lower_bound_sq_batch", "lower_bound_sq",
              "euclid_sq"),
 }
 MAX_PEAK_GIB = 70.0  # the packed and disk phases' device-memory limit
@@ -185,12 +206,13 @@ def kernel_row(name, err, ms, plain_ms, n_bytes, n_ops) -> dict:
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
-def path_counts(path: str) -> dict:
-    """Read the launch counts after driving ``path``; each of its kernels
-    must have launched."""
+def path_counts(path: str, counts=None) -> dict:
+    """Read the launch counts after driving ``path`` (or take ``counts``,
+    summed over its processes); each of its kernels must have launched."""
     from repro_torch.kernels import ops
 
-    counts = ops.launch_counts()
+    if counts is None:
+        counts = ops.launch_counts()
     log(f"[{path}] launches {counts}")
     for name in PATH_KERNELS[path]:
         expect(counts[name] > 0, f"kernel {name} never launched on the "
@@ -1143,6 +1165,269 @@ def serve_ingest(full: dict, host_q, same) -> tuple:
     return out, first
 
 
+MESH_WORLD = 4  # ranks of the mesh phase's gloo mesh, all on the one card
+MESH_GROUP_TIMEOUT_S = 120  # a collective that waits this long fails
+MESH_JOIN_TIMEOUT_S = 420  # a mesh that has not returned by then fails
+MESH_SINGLE_QUERIES = 8  # queries of step (b)'s single-query searches
+MESH_COLLECTIVE_CALLS = 200  # calls a collective is timed over
+
+
+def run_mesh(world: int, backend: str, args: tuple) -> tuple:
+    """Spawn ``world`` ranks over ``backend`` on the device of ``args``'s
+    ``DistIndex`` and run ``run_plan``; returns (every rank's result, the
+    parent's peak bytes while they ran, wall seconds)."""
+    import torch
+
+    from repro_torch.core import distributed as mesh_mod
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as store:
+        ranks = mesh_mod.spawn_mesh(
+            mesh_mod.run_plan, world, backend=backend,
+            init_method=f"file://{store}/rendezvous",
+            timeout=MESH_GROUP_TIMEOUT_S, join_timeout=MESH_JOIN_TIMEOUT_S,
+            device=args[0].device, args=args)
+    return ranks, torch.cuda.max_memory_allocated(), time.perf_counter() - t0
+
+
+def mesh_same_on_every_rank(ranks, what: str) -> None:
+    import numpy as np
+
+    for name, got in ranks[0].items():
+        if not isinstance(got, dict) or "position" not in got:
+            continue  # not a search step
+        for other in ranks[1:]:
+            for f in ("dist_sq", "position", "raw_reads", "bsf_updates",
+                      "rounds"):
+                expect(np.array_equal(other[name][f], got[f]),
+                       f"mesh {what} {name}: ranks disagree on {f}")
+
+
+def mesh_step_figures(ranks, name: str) -> dict:
+    """Wall time (the slowest rank), rounds, reads a query, collectives."""
+    r0 = ranks[0][name]
+    reads = r0["raw_reads"].astype("float64")
+    return dict(wall_s=max(r[name]["seconds"] for r in ranks),
+                rounds=r0["rounds"].tolist(),
+                reads_mean=float(reads.mean()), reads_max=int(reads.max()),
+                collectives=int(r0["collectives"]))
+
+
+def phase_mesh(full: dict) -> tuple:
+    """The mesh (``repro_torch.core.distributed``) over phase 4's index and
+    queries: (a) 4 gloo ranks on the card, each with a quarter of N by
+    CUDA IPC, batch k-NN and 1-NN; (b) the single-query search in its four
+    modes on 8 queries; (c) the distributed build over 2^22 series; (d) the
+    batch k-NN again on one nccl rank. Returns (the path's launch counts,
+    summed over the parent and every rank, and the ``{"mesh": ...}``
+    figures)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.paris import CONFIG
+    from repro_torch.core import distributed as mesh_mod
+    from repro_torch.core import isax
+    from repro_torch.core.search import select_len
+    from repro_torch.kernels import ops
+
+    index, args, queries = full["index"], full["args"], full["queries"]
+    k, rs, leaf = args.k, CONFIG.round_size, CONFIG.leaf_cap
+    n_series, n_q = index.num_series, queries.shape[0]
+    want_d, want_p = full["d"].cpu().numpy(), full["p"].cpu().numpy()
+    expect(n_series % MESH_WORLD == 0, "mesh: N must split into 4 shards")
+    n_local = n_series // MESH_WORLD
+    fig = dict(world=MESH_WORLD, backend="gloo", n=n_series, shard=n_local,
+               queries=n_q, k=k, round=rs, leaf=leaf)
+    log(f"[mesh] N={n_series} over {MESH_WORLD} gloo ranks on one card "
+        f"({n_local} rows a shard, by CUDA IPC); Q={n_q} k={k} round={rs} "
+        f"leaf={leaf}")
+
+    alloc0 = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    dindex = mesh_mod.dist_index_from(index, MESH_WORLD)
+    torch.cuda.synchronize()
+    fig["layout_s"] = time.perf_counter() - t0
+    # N = 2^24 pads no row at either world size, so world 1 shares it.
+    expect(dindex.num_rows == n_series, "mesh: unexpected padding rows")
+    build_rows = index.raw[:n_local]  # (c): the first 2^22 series
+    kw = dict(round_size=rs, leaf_cap=leaf)
+    one = dict(kw, queries=MESH_SINGLE_QUERIES)
+    timing = ("collectives", "collectives",
+              dict(calls=MESH_COLLECTIVE_CALLS, k=k, queries=n_q))
+    plan = [("k", "batch", dict(kw, k=k)), ("k1", "batch", dict(kw, k=1)),
+            ("sort", "search", one),
+            ("topk", "search", dict(one, select="topk")),
+            ("nb", "search", dict(one, shared_bsf=False)),
+            ("bq", "search", dict(one, batch_queries=MESH_SINGLE_QUERIES)),
+            ("build", "build", {}), timing]
+    ranks, parent_peak, wall = run_mesh(
+        MESH_WORLD, "gloo", (dindex, queries, plan, build_rows))
+    mesh_same_on_every_rank(ranks, "gloo")
+    fig["spawn_wall_s"] = wall
+    peak4 = (parent_peak + sum(r["peak_bytes"] for r in ranks)) / 2**30
+    fig["peak_gib"] = dict(parent=parent_peak / 2**30, ranks=[
+        r["peak_bytes"] / 2**30 for r in ranks], summed=peak4)
+    log(f"[mesh] {MESH_WORLD} ranks spawned, run and joined in {wall:.2f} s;"
+        f" summed peak device memory {peak4:.2f} GiB (parent "
+        f"{parent_peak / 2**30:.2f}, ranks "
+        f"{[round(r['peak_bytes'] / 2**30, 2) for r in ranks]})")
+    expect(peak4 < MAX_PEAK_GIB, f"mesh summed peak {peak4:.2f} GiB")
+    r0 = ranks[0]
+
+    # (a) the batch forms against phase 4's single-index answers.
+    for name, dd, pp in (("k", want_d, want_p),
+                         ("k1", want_d[:, 0], want_p[:, 0])):
+        got = r0[name]
+        expect(np.array_equal(got["position"], pp), f"mesh (a) {name}: "
+               "positions differ from phase 4's")
+        rel = float(np.max(np.abs(got["dist_sq"] - dd) / np.maximum(
+            np.abs(dd), 1e-30)))
+        bitwise = bool(np.array_equal(got["dist_sq"], dd))
+        expect(rel <= 1e-6, f"mesh (a) {name}: distances off by {rel:.3e}")
+        fig[name] = dict(mesh_step_figures(ranks, name), bitwise=bitwise,
+                         max_rel_err=rel)
+        log(f"[mesh] (a) k={k if name == 'k' else 1}: positions equal phase "
+            f"4's; distances {'bitwise' if bitwise else 'within'} (max rel "
+            f"{rel:.3g}); {fig[name]}")
+    sel = min(select_len(n_local, rs), max(
+        rs, mesh_mod.SELECT_BUDGET_VALUES // (n_q * index.series_length)))
+    fig["selected_rows"] = sel
+    log(f"[mesh] selection budget: {sel} rows a query a shard, so "
+        f"{-(-sel // rs)} main round(s) before the file-order fallback")
+
+    # (b) the single-query search, every mode, on the first 8 queries.
+    first = want_p[:MESH_SINGLE_QUERIES, 0]
+    for name in ("sort", "topk", "nb", "bq"):
+        got = r0[name]
+        expect(np.array_equal(got["position"], first),
+               f"mesh (b) {name}: positions differ from (a)'s 1-NN")
+        expect(np.allclose(got["dist_sq"], want_d[:MESH_SINGLE_QUERIES, 0],
+                           rtol=1e-6, atol=0),
+               f"mesh (b) {name}: distances differ from phase 4's")
+        fig[name] = mesh_step_figures(ranks, name)
+        log(f"[mesh] (b) {name}: 8 positions equal (a)'s; {fig[name]}")
+
+    # (c) the distributed build against the plain versions on the card.
+    x = isax.znorm(build_rows)
+    bp = isax.gaussian_breakpoints(index.cardinality, x.device)
+    sax_p, _ = ops.paa_isax(x, bp, index.segments, normalize=False,
+                            impl="ref")
+    keys_p = isax.root_key(sax_p, index.cardinality)
+    del x
+    sax_m = np.concatenate([r["build"]["sax"] for r in ranks])
+    keys_m = np.concatenate([r["build"]["keys"] for r in ranks])
+    expect(np.array_equal(sax_m, sax_p.cpu().numpy())
+           and np.array_equal(keys_m, keys_p.cpu().numpy()),
+           "mesh (c): build SAX or root keys differ from the plain versions")
+    del sax_p, keys_p
+    fig["build"] = dict(wall_s=max(r["build"]["seconds"] for r in ranks),
+                        series=n_local)
+    col = [r["collectives"] for r in ranks]
+    fig["collective_ms"] = dict(
+        gmin=max(c["gmin_ms"] for c in col),
+        all_gather=max(c["all_gather_ms"] for c in col))
+    log(f"[mesh] (c) build of {n_local} series: SAX and root keys equal the "
+        f"plain versions bit for bit, {fig['build']['wall_s']:.3f} s; one "
+        f"collective (gloo, {MESH_WORLD} ranks on one card, Q={n_q}): "
+        f"{fig['collective_ms']}")
+
+    # (d) one nccl rank over the whole index: the selection now runs over
+    # 2^24 rows, so rounds and reads differ; positions may not.
+    plan1 = [("k", "batch", dict(kw, k=k)), timing]
+    ranks1, parent_peak1, wall1 = run_mesh(1, "nccl",
+                                           (dindex, queries, plan1))
+    got = ranks1[0]["k"]
+    expect(np.array_equal(got["position"], r0["k"]["position"]),
+           "mesh (d): nccl world 1 positions differ from (a)'s")
+    peak1 = (parent_peak1 + ranks1[0]["peak_bytes"]) / 2**30
+    expect(peak1 < MAX_PEAK_GIB, f"mesh (d) summed peak {peak1:.2f} GiB")
+    fig["nccl_world1"] = dict(
+        mesh_step_figures(ranks1, "k"), spawn_wall_s=wall1, peak_gib=peak1,
+        collective_ms=dict(gmin=ranks1[0]["collectives"]["gmin_ms"],
+                           all_gather=ranks1[0]["collectives"][
+                               "all_gather_ms"]))
+    log(f"[mesh] (d) nccl world 1: positions equal (a)'s; "
+        f"{fig['nccl_world1']}")
+
+    counts = ops.launch_counts()  # the parent launched nothing on the path
+    for r in ranks + ranks1:
+        for name, c in r["launches"].items():
+            counts[name] += c
+    counts = path_counts("mesh", counts)
+    fig["launches"] = counts
+    mesh_kernel_checks(dindex, queries, rs)
+    # The ranks dropped what they received by IPC, so the layout frees.
+    del dindex, build_rows
+    torch.cuda.empty_cache()
+    held = (torch.cuda.memory_allocated() - alloc0) / 2**30
+    log(f"[mesh] {held:.3f} GiB still allocated after the phase")
+    expect(held < 1.0, f"mesh: {held:.2f} GiB not freed after the phase")
+    return counts, fig
+
+
+def mesh_kernel_checks(dindex, queries, rs: int) -> None:
+    """The mesh path's kernels against their plain versions at its shapes
+    (after its counts): ``lower_bound_sq_batch`` and ``lower_bound_sq``
+    over one 2^22-row shard, ``euclid_sq`` on shared (4096,) rows as the
+    fallback scans them, ``paa_isax`` on 2^22 series."""
+    import torch
+
+    from repro_torch.core import distributed as mesh_mod
+    from repro_torch.core import isax
+    from repro_torch.kernels import ops
+
+    shard = mesh_mod.shard_of(dindex, MESH_WORLD - 1, MESH_WORLD)
+    n, w = shard.series_length, shard.segments
+    dev = shard.device
+    qs = isax.znorm(queries)
+    qps = isax.paa(qs, w)
+    bpp = isax.padded_breakpoints(shard.cardinality, dev)
+    times = {}
+
+    lb = ops.lower_bound_sq_batch(qps, shard.sax, bpp, n)
+    expect(torch.equal(lb, ops.lower_bound_sq_batch(qps, shard.sax, bpp, n,
+                                                    impl="ref")),
+           "mesh: lower_bound_sq_batch over a shard not bitwise equal to "
+           "its plain version")
+    del lb
+    times["lower_bound_sq_batch"] = time_ms(
+        lambda: ops.lower_bound_sq_batch(qps, shard.sax, bpp, n), 10)
+    qp1 = qps[0].contiguous()
+    expect(torch.equal(ops.lower_bound_sq(qp1, shard.sax, bpp, n),
+                       ops.lower_bound_sq(qp1, shard.sax, bpp, n,
+                                          impl="ref")),
+           "mesh: lower_bound_sq over a shard not bitwise equal to plain")
+    times["lower_bound_sq"] = time_ms(
+        lambda: ops.lower_bound_sq(qp1, shard.sax, bpp, n), 50)
+    # The fallback's last round: (4096,) rows shared by every query.
+    last = -(-shard.num_rows // rs) - 1
+    rows = mesh_mod._wrap_rows(last, rs, shard.num_rows, dev).to(torch.int32)
+    got = ops.euclid_sq_gather(qs, shard.raw_sorted, rows)
+    plain = ops.euclid_sq_gather(qs, shard.raw_sorted, rows, impl="ref")
+    expect(torch.allclose(got, plain, rtol=1e-5, atol=1e-5),
+           "mesh: euclid_sq on shared rows differs from its plain version")
+    times["euclid_sq"] = time_ms(
+        lambda: ops.euclid_sq_gather(qs, shard.raw_sorted, rows), 50)
+    x = isax.znorm(shard.raw_sorted)
+    bp = isax.gaussian_breakpoints(shard.cardinality, dev)
+    got = ops.paa_isax(x, bp, w, normalize=False)
+    plain = ops.paa_isax(x, bp, w, normalize=False, impl="ref")
+    expect(all(torch.equal(g, e) for g, e in zip(got, plain)),
+           "mesh: paa_isax on 2^22 series not bitwise equal to plain")
+    del got, plain
+    times["paa_isax"] = time_ms(
+        lambda: ops.paa_isax(x, bp, w, normalize=False), 10)
+    del x
+    log(f"[mesh] kernels at the mesh's shapes against their plain versions: "
+        f"lower_bound_sq_batch ({qps.shape[0]}, {shard.num_rows}) and "
+        f"lower_bound_sq ({shard.num_rows},) bitwise, euclid_sq ({qs.shape[0]}"
+        f" x {rs} shared rows) within 1e-5, paa_isax ({shard.num_rows} series)"
+        f" bitwise; ms {times}")
+
+
 def component_sizes(n_series: int) -> list:
     """Five contiguous components: a base of ~N/2, runs of ~N/4 and ~N/8,
     and two deltas of the rest; no size a multiple of the 128-row block."""
@@ -1665,6 +1950,8 @@ def main(argv=None) -> int:
     base_counts = phase("baselines", phase_baselines, full)
     rows = phase("kernels", phase_kernels, full)
     serve_counts, serve_fig = phase("serve", phase_serve, full)
+    mesh_counts, mesh_fig = phase("mesh", phase_mesh, full)
+    torch.cuda.empty_cache()
     index = full["index"]  # phase 8 is held to phase 4's index: host copies
     full["host"] = dict(sax=index.sax.cpu(), pos=index.pos.cpu(),
                         offsets=index.bucket_offsets.cpu())
@@ -1674,13 +1961,14 @@ def main(argv=None) -> int:
     disk_counts = phase("disk", phase_disk, full)
     for row in rows:  # launches: summed over the driven paths
         row["launches"] = sum(c[row["name"]] for c in (
-            full["counts"], base_counts, serve_counts, packed_counts,
-            disk_counts))
+            full["counts"], base_counts, serve_counts, mesh_counts,
+            packed_counts, disk_counts))
         expect(row["launches"] > 0, f"{row['name']} never launched")
     expect(sorted(r["name"] for r in rows) == sorted(KERNEL_ROWS),
            "the kernels line must list every kernel")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"serve": serve_fig}))
+    print(json.dumps({"mesh": mesh_fig}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

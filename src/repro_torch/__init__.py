@@ -7,6 +7,7 @@ written for the H100. It imports no JAX. Entry points run on the card
 """
 
 from repro_torch.convert import (
+    dist_index_from_arrays,
     index_from_arrays,
     index_to_arrays,
     packed_from_arrays,
@@ -58,8 +59,8 @@ from repro_torch.serving import (
 )
 
 __all__ = [
-    "index_from_arrays", "index_to_arrays", "packed_from_arrays",
-    "packed_to_arrays",
+    "dist_index_from_arrays", "index_from_arrays", "index_to_arrays",
+    "packed_from_arrays", "packed_to_arrays",
     "PackedComponents", "ParISIndex", "SearchConfig", "SearchResult", "Tier",
     "brute_force", "build_index", "build_sharded_index", "exact_knn",
     "exact_knn_batch", "exact_knn_batch_packed", "exact_search",

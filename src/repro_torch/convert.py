@@ -5,7 +5,9 @@
 :class:`~repro_torch.core.index.ParISIndex` on ``device``;
 ``index_to_arrays`` goes the other way. ``packed_from_arrays`` and
 ``packed_to_arrays`` do the same for a packed multi-component store
-(:class:`~repro_torch.core.search.PackedComponents`). None of them imports
+(:class:`~repro_torch.core.search.PackedComponents`), and
+``dist_index_from_arrays`` for the mesh's padded, index-ordered arrays
+(:class:`~repro_torch.core.distributed.DistIndex`). None of them imports
 JAX: the arrays are plain numpy, so the tests can run both engines over
 one identical index or packed buffer.
 """
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.device import resolve_device
+from repro_torch.core.distributed import DistIndex
 from repro_torch.core.index import ParISIndex
 from repro_torch.core.search import PackedComponents
 
@@ -109,3 +112,30 @@ def packed_to_arrays(packed: PackedComponents) -> dict:
         segments=packed.segments,
         cardinality=packed.cardinality,
     )
+
+
+def dist_index_from_arrays(sax, raw_sorted, pos, series_length: int,
+                           segments: int, cardinality: int,
+                           device="cuda") -> DistIndex:
+    """numpy arrays of a mesh index (padded, index order) -> ``DistIndex``."""
+    dev = resolve_device(device)
+
+    def put(x, dtype):
+        return torch.tensor(np.asarray(x), dtype=dtype, device=dev)
+
+    dindex = DistIndex(
+        sax=put(sax, torch.uint8),
+        raw_sorted=put(raw_sorted, torch.float32),
+        pos=put(pos, torch.int32),
+        series_length=int(series_length),
+        segments=int(segments),
+        cardinality=int(cardinality),
+    )
+    n = dindex.num_rows
+    if dindex.sax.shape != (n, dindex.segments):
+        raise ValueError(f"sax shape {tuple(dindex.sax.shape)} != ({n}, "
+                         f"{dindex.segments})")
+    if (dindex.pos.shape != (n,)
+            or dindex.raw_sorted.shape != (n, dindex.series_length)):
+        raise ValueError("pos/raw_sorted do not match the sax rows")
+    return dindex

@@ -616,3 +616,58 @@ def test_cuda_ingesting_router_card_batches_match_one_shot_build(cuda_device):
     finally:
         svc.stop()
     assert svc.num_series == 7000 and svc.mutable.num_deltas == 0
+
+
+def _mesh_answers(dindex, queries, world, backend, store):
+    from repro_torch.core import distributed as tdist
+
+    kw = dict(round_size=256, leaf_cap=4)
+    plan = [("k1", "batch", dict(kw, k=1)), ("k8", "batch", dict(kw, k=8)),
+            ("topk", "search", dict(kw, select="topk", queries=4)),
+            ("build", "build", {})]
+    rows = dindex.raw_sorted[:2048]
+    return tdist.spawn_mesh(
+        tdist.run_plan, world, backend=backend,
+        init_method=f"file://{store}", timeout=30, join_timeout=120,
+        device=dindex.device, args=(dindex, queries, plan, rows))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world,backend", [(2, "gloo"), (1, "nccl")])
+def test_cuda_mesh_matches_cpu_mesh(cuda_device, tmp_path, world, backend):
+    """The mesh on the card (gloo ranks share it; one nccl rank) answers
+    as the same mesh on the CPU: positions, reads and rounds equal."""
+    import dataclasses
+
+    from repro_torch.core import build_index
+    from repro_torch.core import distributed as tdist
+
+    raw = random_walk(6001, 128, seed=151)  # world 2 pads one filler row
+    rng = np.random.default_rng(152)
+    base = tx.znorm(_t(raw[rng.integers(0, 6001, 8)])).numpy()
+    queries = (base + 1.5 * rng.standard_normal(base.shape)).astype(
+        np.float32)  # loose bounds: the batch forms run their fallback
+    on_cpu = tdist.dist_index_from(build_index(raw, device="cpu"), world)
+    on_card = dataclasses.replace(
+        on_cpu, sax=on_cpu.sax.to(cuda_device),
+        raw_sorted=on_cpu.raw_sorted.to(cuda_device),
+        pos=on_cpu.pos.to(cuda_device))
+    card = _mesh_answers(on_card, torch.from_numpy(queries).to(cuda_device),
+                         world, backend, tmp_path / "card")
+    cpu = _mesh_answers(on_cpu, torch.from_numpy(queries), world, "gloo",
+                        tmp_path / "cpu")
+    for name in ("k1", "k8", "topk"):
+        a, b = card[0][name], cpu[0][name]
+        for f in ("position", "raw_reads", "bsf_updates", "rounds"):
+            np.testing.assert_array_equal(a[f], b[f], err_msg=f"{name} {f}")
+        np.testing.assert_allclose(a["dist_sq"], b["dist_sq"], rtol=1e-5,
+                                   atol=1e-5)
+    for a, b in zip(card, cpu):
+        np.testing.assert_array_equal(a["build"]["sax"], b["build"]["sax"])
+        np.testing.assert_array_equal(a["build"]["keys"], b["build"]["keys"])
+    assert card[0]["k1"]["rounds"] > 4  # 1024 selected rows: 4 main rounds
+    launched = {name: sum(r["launches"][name] for r in card)
+                for name in card[0]["launches"]}
+    for name in ("paa_isax", "lower_bound_sq_batch", "lower_bound_sq",
+                 "euclid_sq"):
+        assert launched[name] > 0, launched
