@@ -25,10 +25,26 @@ Phases, each of which raises (exit code 1) on a failed check:
                 ``nb_exact_search`` (nb-ParIS+, 16 workers) and
                 ``brute_force`` (the UCR-Suite scan), each 1-NN held against
                 the oracle, with per-query times, raw reads and rounds;
+  classify    — the paper's Fig. 18 k-NN classifier
+                (``repro_torch.core.classifier``) over phase 4's index, each
+                series labelled by its trend (last value above its first),
+                on 16 random-walk queries made from ``--seed``, k = 5:
+                ``predict`` (the index's exact k-NN) must equal
+                ``predict_brute`` (a full scan) and the vote of
+                ``oracle_knn``'s neighbours, and its neighbours the
+                oracle's; the mean time a query of both;
   6. kernels  — each kernel against its plain version on the same inputs,
                 at the shapes the paths gave it, timed with CUDA events
                 beside its bound (the larger of bytes over 3.35 TB/s and
-                fp32 operations over 67 TFLOP/s, the H100 SXM peaks);
+                fp32 operations over 67 TFLOP/s, the H100 SXM peaks), with
+                the launch shape each ran at;
+  tuning      — the launch-shape table (``repro_torch.core.tuning``): the
+                committed table validates; for each registered kernel at a
+                moderate shape, every admitted lattice point's output equals
+                the default shape's bit for bit, and the default equals its
+                plain version; at each canonical shape of the table, the
+                default and the table's winner are timed with CUDA events
+                (a ``{"tuning": ...}`` JSON line);
   serve       — the serving fabric (``repro_torch.serving``) over phase 4's
                 index and queries, the queries sent as host rows: (a) a
                 ``ShardedSearchRouter`` of 4 file-order shards (views of
@@ -94,18 +110,21 @@ Phases, each of which raises (exit code 1) on a failed check:
                 phase 4's N, phase 4's index and answers. Peak device
                 memory under 70 GiB.
 
-Phases 4, 5, serve, mesh, 7 and 8 each drive a path with every launch
-count set to 0 just before and read just after; each kernel of a path must
-have launched on it, and a kernel's ``launches`` are its counts summed over
-those paths. The last five lines of standard output are the serve phase's
-JSON object, the mesh phase's, the kernels' JSON object, the
-``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
+Phases 4, 5, classify, serve, mesh, 7 and 8 each drive a path with every
+launch count set to 0 just before and read just after; each kernel of a
+path must have launched on it, and a kernel's ``launches`` are its counts
+summed over those paths. Phase 2 prints the build's nvcc seconds and fails
+if any kernel instantiation spills registers. The last six lines of
+standard output are the tuning phase's JSON object, the serve phase's, the
+mesh phase's, the kernels' JSON object, the ``nvidia-smi`` name and power
+limit, and ``{"ok": true, "device": ...}``.
 It imports no JAX: the port is the package ``repro_torch`` under ``src/``.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import os
@@ -139,6 +158,7 @@ KERNEL_ROWS = {  # name -> (source, TPU kernel it replaces)
 PATH_KERNELS = {
     "full": ("paa_isax", "lower_bound_sq_batch", "euclid_sq"),
     "baselines": ("lower_bound_sq", "euclid_sq", "euclid_min"),
+    "classify": ("lower_bound_sq_batch", "euclid_sq"),
     "serve": ("paa_isax", "lower_bound_sq_batch", "euclid_sq"),
     "packed": ("paa_isax", "lower_bound_sq_multi", "euclid_sq"),
     "disk": ("paa_isax", "lower_bound_sq_batch", "lower_bound_sq_multi",
@@ -146,6 +166,11 @@ PATH_KERNELS = {
     "mesh": ("paa_isax", "lower_bound_sq_batch", "lower_bound_sq",
              "euclid_sq"),
 }
+# Each kernel's name in the launch-shape registry (euclid_min keeps a fixed
+# shape: 256 threads, 4 rows a warp, at most 2048 blocks).
+TUNED_AS = {"paa_isax": "paa_isax", "lower_bound_sq_batch": "lb_batch",
+            "euclid_sq": "euclid", "lower_bound_sq": "lb_single",
+            "lower_bound_sq_multi": "lb_multi"}
 MAX_PEAK_GIB = 70.0  # the packed and disk phases' device-memory limit
 DISK_CHUNK = 1 << 18  # pipeline chunk (series): the double-buffer size
 DISK_EPOCHS = 4  # the pipeline's memory limit is N / 4 series
@@ -194,16 +219,28 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple:
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernel_row(name, err, ms, plain_ms, n_bytes, n_ops) -> dict:
-    """One kernel's entry of the JSON line; ``launches`` is filled in later."""
+def launch_shape(name: str, q: int, n: int, dev) -> dict:
+    """The launch shape kernel ``name`` resolves to for a (Q, N) call on
+    ``dev``: its tuning-table entry or its defaults (``euclid_min``: fixed)."""
+    from repro_torch.core import tuning
+
+    if name not in TUNED_AS:
+        return {"threads": 256, "rows_per_warp": 4, "max_blocks": 2048}
+    return tuning.resolve_blocks(TUNED_AS[name], q=q, n=n, device=dev)
+
+
+def kernel_row(name, err, ms, plain_ms, n_bytes, n_ops, shape) -> dict:
+    """One kernel's entry of the JSON line; ``launches`` is filled in later.
+    ``shape`` is the launch shape it was timed at."""
     b_ms, b_by = bound_ms(n_bytes, n_ops)
     src, replaces = KERNEL_ROWS[name]
     log(f"[kernel] {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms); bytes "
         f"{n_bytes:.4g} ops {n_ops:.4g}; bound {b_ms:.4f} ms by {b_by}; "
-        f"{100 * b_ms / ms:.1f}% of bound; max abs err {err:.3g}")
+        f"{100 * b_ms / ms:.1f}% of bound; max abs err {err:.3g}; shape "
+        f"{shape}")
     return dict(name=name, route="cuda", source=src, replaces=replaces,
                 launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                bound_ms=b_ms, bound_by=b_by, library_ms=None, shape=shape)
 
 
 def path_counts(path: str, counts=None) -> dict:
@@ -289,23 +326,34 @@ def phase_device() -> tuple:
     return name, count, smi
 
 
-# A lower-bound kernel's mangled name: lb_kernel<w, form> with an int form
-# (0 batch, 1 masked) or lb_single_kernel<w>; or, in builds before the
-# forms had kernels of their own, lb_kernel<w, masked> with a bool.
+# A lower-bound kernel's mangled name: lb_kernel<w, form, threads, rows>
+# with an int form (0 batch, 1 masked), or lb_single_kernel<w, threads>; in
+# builds before the launch shape was a template argument, lb_kernel<w,
+# form> and lb_single_kernel<w> (and, before the forms had kernels of their
+# own, lb_kernel<w, masked> with a bool).
 LB_NAME = re.compile(
-    r"lb_(?:kernelILi(\d+)EL[bi](\d)E|single_kernelILi(\d+)E)")
+    r"lb_(?:kernelILi(\d+)EL[bi](\d)E(?:Li(\d+)ELi(\d+)E)?"
+    r"|single_kernelILi(\d+)E(?:Li(\d+)E)?)")
 
 
 def lb_instance(mangled: str):
-    """(``lb_kernel<w=16, batch>``, w) for a mangled lower-bound kernel,
-    else (None, 0)."""
+    """(``lb_kernel<w=16, batch>``, w) for a mangled lower-bound kernel at
+    its default launch shape (128 threads of 4 rows, 2 at w = 32; the
+    single query's 512 threads), ``lb_kernel<w=16, batch, threads=256,
+    rows=2>`` at another; else (None, 0)."""
     m = LB_NAME.search(mangled)
     if m is None:
         return None, 0
-    if m.group(3):
-        return f"lb_kernel<w={m.group(3)}, single>", int(m.group(3))
-    form = ("batch", "masked")[int(m.group(2))]
-    return f"lb_kernel<w={m.group(1)}, {form}>", int(m.group(1))
+    if m.group(5):
+        w, threads = int(m.group(5)), m.group(6)
+        extra = "" if threads in (None, "512") else f", threads={threads}"
+        return f"lb_kernel<w={w}, single{extra}>", w
+    w, form = int(m.group(1)), ("batch", "masked")[int(m.group(2))]
+    threads, rows = m.group(3), m.group(4)
+    default = (threads is None
+               or (int(threads), int(rows)) == (128, 2 if w == 32 else 4))
+    extra = "" if default else f", threads={threads}, rows={rows}"
+    return f"lb_kernel<w={w}, {form}{extra}>", w
 
 
 def ptxas_entries(build_log: str) -> list:
@@ -391,8 +439,9 @@ def hot_loop(insts: list, w: int):
 
 def report_lb_code(tag: str, build_log: str, so_path) -> dict:
     """Print each lower-bound instantiation's registers, spills and shared
-    memory, and (with ``cuobjdump``) its inner loop's instruction count;
-    returns the instructions per (query, row) pair by instantiation."""
+    memory, and (with ``cuobjdump``) the inner loop's instruction count of
+    each instantiation at its default launch shape; returns the
+    instructions per (query, row) pair by instantiation."""
     per_pair = {}
     for entry, regs, st, ld, smem in ptxas_entries(build_log):
         inst, _ = lb_instance(entry)
@@ -404,7 +453,7 @@ def report_lb_code(tag: str, build_log: str, so_path) -> dict:
         log(f"[{tag}] cuobjdump not found: no SASS instruction counts")
     for entry, insts in sorted(funcs.items()):
         inst, w = lb_instance(entry)
-        if inst is None:
+        if inst is None or "threads=" in inst:  # default shapes only
             continue
         loop = hot_loop(insts, w)
         if loop is None:
@@ -426,12 +475,18 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     _build.load()
     log(f"[build] kernels ready in {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {_build.build_seconds:.2f} s)")
+        f"(nvcc {_build.build_seconds:.2f} s, {len(_build.UNITS)} units in "
+        "parallel)")
     for line in _build.build_log.splitlines():
         if ("ptxas info" in line or "spill" in line
                 or line.startswith("---")):
             log(f"[build]   {line.strip()}")
     report_lb_code("build", _build.build_log, _build.library_path)
+    entries = ptxas_entries(_build.build_log)
+    spills = [e for e in entries if e[2] or e[3]]
+    log(f"[build] {len(entries)} kernel instantiations, {len(spills)} spill")
+    expect(not spills, f"instantiations that spill registers (drop their "
+           f"shapes from the lattice): {[e[0] for e in spills]}")
 
 
 def phase_quickstart(dev) -> None:
@@ -587,6 +642,94 @@ def phase_baselines(full: dict) -> dict:
     return counts
 
 
+CLASSIFY_QUERIES = 16  # the classify phase's random-walk queries
+CLASSIFY_K = 5
+
+
+def phase_classify(full: dict) -> dict:
+    """The k-NN classifier over phase 4's index (see the module docstring);
+    returns the path's launch counts."""
+    import torch
+
+    from repro_torch.core import isax
+    from repro_torch.core.classifier import KnnClassifier
+    from repro_torch.kernels import ops
+
+    index, args = full["index"], full["args"]
+    dev, n = index.device, index.series_length
+    labels = (index.raw[:, -1] > index.raw[:, 0]).to(torch.int64)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed + 1)  # not phase 4's stream: other queries
+    queries = random_walks(CLASSIFY_QUERIES, n, gen, dev)
+    clf = KnnClassifier(index, labels, k=CLASSIFY_K)
+    log(f"[classify] N={index.num_series} labels: trend up "
+        f"{int(labels.sum())}, down {index.num_series - int(labels.sum())}; "
+        f"{CLASSIFY_QUERIES} queries, k={CLASSIFY_K}")
+
+    ops.reset_launch_counts()  # the classify path starts here
+    found, times = [], {"predict": [], "predict_brute": []}
+    for q in queries:
+        for name in times:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            label = getattr(clf, name)(q)
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+            found.append((name, label))
+        found.append(("neighbours", clf.kneighbors(q)[1]))
+    counts = path_counts("classify")  # the classify path ends here
+    classify_kernel_checks(index, queries[0], clf.round_size)
+
+    od, op = oracle_knn(index.raw, isax.znorm(queries), CLASSIFY_K)
+    for i in range(CLASSIFY_QUERIES):
+        (_, pred), (_, brute), (_, nbrs) = found[3 * i:3 * i + 3]
+        want = clf.vote(op[i])
+        expect(pred == brute == want, f"classify query {i}: predict {pred}, "
+               f"predict_brute {brute}, the oracle's vote {want}")
+        expect(torch.equal(torch.sort(nbrs.long()).values,
+                           torch.sort(op[i]).values),
+               f"classify query {i}: neighbours {nbrs.tolist()} are not the "
+               f"oracle's {op[i].tolist()}")
+    for name, ts in times.items():
+        log(f"[classify] {name}: mean {1e3 * sum(ts) / len(ts):.3f} ms a "
+            f"query")
+    log(f"[classify] every query: predict == predict_brute == the oracle's "
+        f"vote, neighbours the oracle's")
+    return counts
+
+
+def classify_kernel_checks(index, query, rs: int) -> None:
+    """The classify path's kernels against their plain versions at its
+    shapes (``exact_knn`` runs the batch engine at Q = 1):
+    ``lower_bound_sq_batch`` on one query's (1, w) PAA over the index's SAX,
+    ``euclid_sq`` on that query's first-round (1, rs) candidate gather."""
+    import torch
+
+    from repro_torch.core import isax
+    from repro_torch.core.search import _queries, _smallest, select_len
+    from repro_torch.kernels import ops
+
+    n, w = index.series_length, index.segments
+    qs = isax.znorm(_queries(index, query[None, :]))
+    qps = isax.paa(qs, w)
+    bpp = isax.padded_breakpoints(index.cardinality, index.device)
+    lb = ops.lower_bound_sq_batch(qps, index.sax, bpp, n)
+    expect(torch.equal(lb, ops.lower_bound_sq_batch(
+        qps, index.sax, bpp, n, impl="ref")), "classify: lower_bound_sq_batch"
+        " at Q=1 not bitwise equal to its plain version")
+    order, _ = _smallest(lb, select_len(index.num_series, rs))
+    del lb
+    pos = index.pos[order[:, :rs].long()].contiguous()
+    del order
+    got = ops.euclid_sq_gather(qs, index.raw, pos)
+    plain = ops.euclid_sq_gather(qs, index.raw, pos, impl="ref")
+    expect(torch.allclose(got, plain, rtol=1e-5, atol=1e-5),
+           "classify: euclid_sq differs from its plain version")
+    log(f"[classify] lower_bound_sq_batch (1 x {index.num_series}) bitwise "
+        f"equal to its plain version; euclid_sq (1 x {pos.shape[1]} "
+        "first-round gather) within 1e-5 of its plain version")
+
+
 def phase_kernels(full: dict) -> list:
     import torch
 
@@ -616,7 +759,8 @@ def phase_kernels(full: dict) -> list:
         time_ms(lambda: ops.paa_isax(index.raw, bp, w, normalize=False,
                                      impl="ref"), 2),
         n_series * n * 4 + bp.numel() * 4 + n_series * w * 5,
-        n_series * n + n_series * w * 9)
+        n_series * n + n_series * w * 9,
+        launch_shape("paa_isax", 1, n_series, dev))
 
     # lower_bound_sq_batch: the engine's (Q, N) pass.
     qps = isax.paa(qz, w)
@@ -632,7 +776,8 @@ def phase_kernels(full: dict) -> list:
         time_ms(lambda: ops.lower_bound_sq_batch(qps, index.sax, bpp, n,
                                                  impl="ref"), 2),
         n_q * w * 4 + index.sax.numel() + bpp.numel() * 4 + n_q * n_series * 4,
-        n_q * n_series * (6 * w + 1))
+        n_q * n_series * (6 * w + 1),
+        launch_shape("lower_bound_sq_batch", n_q, n_series, dev))
 
     # The engine's candidate selection between the two kernels: not a
     # kernel of the port, timed to show where the search time goes.
@@ -659,7 +804,7 @@ def phase_kernels(full: dict) -> list:
         time_ms(lambda: ops.euclid_sq_gather(qz, index.raw, pos,
                                              impl="ref"), 5),
         uniq * n * 4 + qz.numel() * 4 + pos.numel() * 4 + pos.numel() * 4,
-        pos.numel() * 3 * n)
+        pos.numel() * 3 * n, launch_shape("euclid_sq", n_q, rs, dev))
     del pos, d_k, d_p
 
     # lower_bound_sq: one query against all N rows, as the baselines call
@@ -678,7 +823,8 @@ def phase_kernels(full: dict) -> list:
         time_ms(lambda: ops.lower_bound_sq(qp1, index.sax, bpp, n,
                                            impl="ref"), 3),
         index.sax.numel() + bpp.numel() * 4 + w * 4 + n_series * 4,
-        n_series * (6 * w + 1))
+        n_series * (6 * w + 1), launch_shape("lower_bound_sq", 1, n_series,
+                                             dev))
 
     # euclid_min: one query's brute-force scan of the raw rows.
     q1 = qz[0].contiguous()
@@ -695,7 +841,89 @@ def phase_kernels(full: dict) -> list:
     row("euclid_min", err,
         time_ms(lambda: ops.euclid_min(q1, index.raw), 10),
         time_ms(lambda: ops.euclid_min(q1, index.raw, impl="ref"), 1),
-        n_series * n * 4 + n * 4 + 8, n_series * 3 * n)
+        n_series * n * 4 + n * 4 + 8, n_series * 3 * n,
+        launch_shape("euclid_min", 1, n_series, dev))
+    return rows
+
+
+# The tuning phase's moderate shapes (Q, N) for the bitwise checks of every
+# admitted launch shape: bounds 64 x 2^20 (one query for the single form),
+# one 4096-row round, 2^20 series.
+TUNING_CHECK_SHAPES = {"lb_batch": (64, 1 << 20), "lb_multi": (64, 1 << 20),
+                       "lb_single": (1, 1 << 20), "euclid": (64, 4096),
+                       "paa_isax": (1, 1 << 20)}
+
+
+def phase_tuning(dev) -> list:
+    """The launch-shape table on the card (see the module docstring);
+    returns the rows of the ``{"tuning": ...}`` line."""
+    import torch
+
+    from repro_torch.core import tuning
+
+    table = tuning.get_table()
+    problems = tuning.validate(table)
+    expect(not problems, f"the committed tuning table: {problems}")
+    backend = tuning.backend_of(dev)
+    card, limit = tuning.card_and_power_limit()
+    log(f"[tuning] table {tuning.default_table_path()}: "
+        f"{len(table.entries)} entries, valid; this card's backend "
+        f"{backend}")
+
+    def outputs(run, kernel, n, params=None):
+        out = run(params)
+        out = out if isinstance(out, tuple) else (out,)
+        return tuple(o[..., :n] if kernel == "lb_multi" else o for o in out)
+
+    for kernel, (q, n) in TUNING_CHECK_SHAPES.items():
+        run = tuning.kernel_runner(kernel, q=q, n=n, device=dev, seed=7)
+        base = outputs(run, kernel, n)
+        plain = outputs(tuning.kernel_runner(kernel, q=q, n=n, impl="ref",
+                                             device=dev, seed=7), kernel, n)
+        if kernel == "euclid":  # summed in another order than the plain
+            expect(torch.allclose(base[0], plain[0], rtol=1e-5, atol=1e-5),
+                   "euclid: the default shape differs from the plain version")
+        else:
+            expect(all(torch.equal(a, b) for a, b in zip(base, plain)),
+                   f"{kernel}: the default shape is not bitwise equal to the "
+                   "plain version")
+        del plain
+        points = tuning.lattice_points(kernel)
+        for point in points:
+            got = outputs(run, kernel, n, point)
+            expect(all(torch.equal(a, b) for a, b in zip(base, got)),
+                   f"{kernel} at {point}: not bitwise equal to the default "
+                   "shape")
+        del run, base, got
+        torch.cuda.empty_cache()
+        log(f"[tuning] {kernel} (Q={q}, N={n}): all {len(points)} admitted "
+            f"shapes bitwise equal to the default, and the default to its "
+            f"plain version")
+
+    rows = []
+    for kernel, spec in tuning.KERNELS.items():
+        for q, n in spec.canonical:
+            key = tuning.make_key(kernel, backend, "f32", q, n)
+            entry = table.entries.get(key)
+            winner = tuning.resolve_blocks(kernel, q=q, n=n, backend=backend)
+            run = tuning.kernel_runner(kernel, q=q, n=n, device=dev)
+            shapes = {"default": spec.defaults, "winner": winner}
+            us = {k: [] for k in shapes}
+            for k in ("default", "winner", "winner", "default"):  # in turns
+                us[k].append(tuning.time_us(lambda: run(shapes[k]),
+                                            device=dev))
+            del run
+            torch.cuda.empty_cache()
+            row = dict(key=key, winner=winner,
+                       us=sum(us["winner"]) / 2,
+                       default_us=sum(us["default"]) / 2,
+                       table_us=entry and entry["us_per_call"],
+                       table_default_us=entry and entry["default_us_per_call"],
+                       card=card, power_limit=limit)
+            log(f"[tuning] {key}: winner {winner} {row['us']:.2f} us, default "
+                f"{row['default_us']:.2f} us (table: {row['table_us']} and "
+                f"{row['table_default_us']} us); {card}, {limit}")
+            rows.append(row)
     return rows
 
 
@@ -1460,7 +1688,13 @@ def phase_packed(full: dict) -> tuple:
     dev = qz.device
     n_series, n, k, rs = full["index"].num_series, qz.shape[1], args.k, 4096
     del full["index"]  # phase 4's index: its answers are kept
+    # The serve phase's futures keep exception tracebacks whose frames hold
+    # its shard engines (views of phase 4's raw) in reference cycles: they
+    # and the index free only when the cycles are collected.
+    gc.collect()
     torch.cuda.empty_cache()
+    log(f"[packed] {torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated "
+        "after phase 4's index was freed")
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     raw = random_walks(n_series, n, gen, dev)  # the same series again
@@ -1538,7 +1772,9 @@ def phase_packed(full: dict) -> tuple:
         time_ms(lambda: multi("ref"), 2),
         n_q * w * 4 + packed.sax.numel() + packed.block_len.numel() * 4
         + bpp.numel() * 4 + n_q * n_pad * 4,
-        n_q * n_series * (6 * w + 1))
+        n_q * n_series * (6 * w + 1),
+        {**launch_shape("lower_bound_sq_multi", n_q, n_pad, dev),
+         "block_n": packed.block})
     return counts, row
 
 
@@ -1948,7 +2184,9 @@ def main(argv=None) -> int:
     phase("quickstart", phase_quickstart, dev)
     full = phase("full", phase_full, args, dev)
     base_counts = phase("baselines", phase_baselines, full)
+    classify_counts = phase("classify", phase_classify, full)
     rows = phase("kernels", phase_kernels, full)
+    tuning_rows = phase("tuning", phase_tuning, dev)
     serve_counts, serve_fig = phase("serve", phase_serve, full)
     mesh_counts, mesh_fig = phase("mesh", phase_mesh, full)
     torch.cuda.empty_cache()
@@ -1961,12 +2199,13 @@ def main(argv=None) -> int:
     disk_counts = phase("disk", phase_disk, full)
     for row in rows:  # launches: summed over the driven paths
         row["launches"] = sum(c[row["name"]] for c in (
-            full["counts"], base_counts, serve_counts, mesh_counts,
-            packed_counts, disk_counts))
+            full["counts"], base_counts, classify_counts, serve_counts,
+            mesh_counts, packed_counts, disk_counts))
         expect(row["launches"] > 0, f"{row['name']} never launched")
     expect(sorted(r["name"] for r in rows) == sorted(KERNEL_ROWS),
            "the kernels line must list every kernel")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"tuning": tuning_rows}))
     print(json.dumps({"serve": serve_fig}))
     print(json.dumps({"mesh": mesh_fig}))
     print(json.dumps({"kernels": rows}))

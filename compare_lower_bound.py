@@ -6,10 +6,14 @@ Run from the repository root, on a machine with a card and ``nvcc``:
     python3 compare_lower_bound.py --baseline OTHER/lower_bound.cu \\
         [--seed 0] [--log2-n 24] [--queries 64]
 
-``OTHER/lower_bound.cu`` is any source with the same three C entries (for
-example an earlier commit's, from ``git show``). It is compiled with the
-port's own ``nvcc`` flags into a library of its own beside the port's
-build. Both are driven on ``chip_smoke.py``'s full-size inputs: the index
+``OTHER/lower_bound.cu`` is a one-file source with the three C entries as
+they were before the launch shape became their arguments (for example
+``git show d847d19:src/repro_torch/kernels/csrc/lower_bound.cu``:
+:data:`BASELINE_SIGNATURES`). It is compiled with the port's own ``nvcc``
+flags into a library of its own beside the port's build. The port's side
+launches at the shapes its tuning table resolves; with
+``REPRO_TORCH_TUNING_PATH`` set to a missing file it launches its defaults,
+the baseline's shapes. Both are driven on ``chip_smoke.py``'s full-size inputs: the index
 built from ``--seed`` (N = 2**log2_n random walks, n = 256, w = 16), the Q
 query PAAs, and a packed buffer of the same SAX rows cut into the five
 components of ``chip_smoke.component_sizes`` in 128-row blocks. For each
@@ -51,6 +55,18 @@ ITERS = {"lower_bound_sq_batch": 50, "lower_bound_sq_multi": 50,
 # read against (the single query is bound by bytes).
 FORMS = {"lower_bound_sq_batch": "batch", "lower_bound_sq_multi": "masked"}
 SUBPARTITIONS = 132 * 4  # H100 SXM: 132 SMs of 4 schedulers
+_VP, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
+# The baseline's C entries (the one-file lower_bound.cu, launch shapes fixed
+# inside): qpaa, sax, bp_padded, [block_len,] out, [Q,] N, w, n_bp_padded,
+# [block_n,] scale, stream.
+BASELINE_SIGNATURES = {
+    "lower_bound_sq_batch_launch": (_VP, _VP, _VP, _VP, _I, _L, _I, _I, _F,
+                                    _VP),
+    "lower_bound_sq_launch": (_VP, _VP, _VP, _VP, _L, _I, _I, _F, _VP),
+    "lower_bound_sq_multi_launch": (_VP, _VP, _VP, _VP, _VP, _I, _L, _I, _I,
+                                    _I, _F, _VP),
+}
 
 
 @contextlib.contextmanager
@@ -84,7 +100,7 @@ def build_baseline(source: pathlib.Path):
     lib = ctypes.CDLL(str(so))
     for name in ITERS:
         fn = getattr(lib, f"{name}_launch")
-        fn.argtypes = list(_build._SIGNATURES[f"{name}_launch"])
+        fn.argtypes = list(BASELINE_SIGNATURES[f"{name}_launch"])
         fn.restype = ctypes.c_int
     return lib, so, out.stdout
 

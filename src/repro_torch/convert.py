@@ -9,7 +9,10 @@
 ``dist_index_from_arrays`` for the mesh's padded, index-ordered arrays
 (:class:`~repro_torch.core.distributed.DistIndex`). None of them imports
 JAX: the arrays are plain numpy, so the tests can run both engines over
-one identical index or packed buffer.
+one identical index or packed buffer. The k-NN classifier
+(:class:`~repro_torch.core.classifier.KnnClassifier`) needs nothing more:
+it takes the index ``index_from_arrays`` builds and its labels as they
+are, so it has no converter of its own.
 """
 
 from __future__ import annotations

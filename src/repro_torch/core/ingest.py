@@ -54,7 +54,7 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import coldtier, durable, isax
+from repro_torch.core import coldtier, durable, isax, tuning
 from repro_torch.core.block_cache import BlockCache
 from repro_torch.core.build_pipeline import (
     _stage2, keys_from_u64, keys_to_u64, merge_runs, refine_key,
@@ -62,7 +62,7 @@ from repro_torch.core.build_pipeline import (
 from repro_torch.core.device import as_f32, resolve_device
 from repro_torch.core.index import ParISIndex, assemble_index, empty_index
 from repro_torch.core.search import (
-    DEFAULT_PACK_BLOCK, INF, NO_POS, PackedComponents, SearchConfig,
+    INF, NO_POS, PackedComponents, SearchConfig,
     SearchResult, _pad_missing, _tier_list, achieved_epsilon,
     exact_knn_batch, exact_search_batch, knn_batch_tiered, merge_top_lists,
     pack_components, pack_one_component, packed_engine_args, packed_seed,
@@ -436,15 +436,20 @@ class _SpillTicket:
         self.t0 = t0
 
 
-def _resolve_pack_block(pack_block: Optional[int]) -> int:
-    """The packed view's block_n: the explicit value, else 128.
+def _resolve_pack_block(pack_block: Optional[int], num_series: int,
+                        device: torch.device) -> int:
+    """The packed view's block_n: the explicit value, else the tuning table.
 
     A layout decision fixed for the store's lifetime (appends extend the
-    buffer in block units). The reference reads its tuning table here;
-    the port has none yet, and 128 is the value that table holds for the
-    packed bound kernel on its CPU backend.
+    buffer in block units), so it is resolved once, at construction: the
+    ``lb_multi`` entry for Q = ``tuning.PACK_Q`` (its canonical batch) and
+    the starting size on the store's device, or the registry default (128)
+    on a miss, as on the CPU.
     """
-    return DEFAULT_PACK_BLOCK if pack_block is None else pack_block
+    if pack_block is not None:
+        return pack_block
+    return tuning.resolve_blocks("lb_multi", q=tuning.PACK_Q, n=max(num_series, 1),
+                                 device=device)["block_n"]
 
 
 def _upload(arr, dtype, device: torch.device) -> torch.Tensor:
@@ -524,7 +529,8 @@ class MutableIndex:
         self.series_length = base.series_length
         self.refine_bits = refine_bits
         self.impl = impl
-        self.pack_block = _resolve_pack_block(pack_block)
+        self.pack_block = _resolve_pack_block(pack_block, base.num_series,
+                                              self.device)
         base_keys = refine_key(base.sax, refine_bits, base.cardinality)
         self._snapshot = Snapshot(base, base_keys)
         self._cold_cache = (cold_cache if cold_cache is not None
@@ -699,7 +705,7 @@ class MutableIndex:
         self.series_length = man.series_length
         self.refine_bits = man.refine_bits
         self.impl = impl
-        self.pack_block = _resolve_pack_block(pack_block)
+        self.pack_block = _resolve_pack_block(pack_block, 0, dev)
         self.workdir = workdir
         self._fault = fault
         self._next_epoch = man.next_epoch

@@ -199,3 +199,20 @@ def euclid_sq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Squared Euclidean distance along the last axis (broadcasting)."""
     d = a - b
     return sum_last(d * d)
+
+
+def batched_euclid_sq(queries: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """(Q, n) x (N, n) -> (Q, N) by the |a|^2 - 2ab + |b|^2 form.
+
+    Counterpart of ``repro/core/isax.py::batched_euclid_sq``, with the
+    cross term a ``torch.matmul`` (in full float32: the caller keeps TF32
+    off, as PyTorch does by default). The reference wrote it for the TPU's
+    matrix unit; it rounds differently from the direct difference sum
+    (:func:`euclid_sq`, the ``euclid_sq`` kernel), so the engine does not
+    use it, and its results match the reference's to the product's
+    rounding, not bit for bit.
+    """
+    qn = sum_last(queries * queries)[:, None]  # (Q, 1)
+    dn = sum_last(data * data)  # (N,)
+    cross = torch.matmul(queries, data.T)  # (Q, N)
+    return torch.clamp_min(qn - 2.0 * cross + dn[None, :], 0.0)

@@ -37,7 +37,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch.core import isax
+from repro_torch.core import isax, tuning
 from repro_torch.core.device import as_f32, resolve_device
 from repro_torch.core.index import ParISIndex
 from repro_torch.kernels import ops
@@ -609,7 +609,8 @@ def knn_batch_tiered(
 
 # --- The packed multi-component path: base + runs + deltas in one sweep. ---
 
-DEFAULT_PACK_BLOCK = 128  # rows per block of the packed layout
+# Rows per block of the packed layout: the lb_multi registry default.
+DEFAULT_PACK_BLOCK = tuning.KERNELS["lb_multi"].defaults["block_n"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -672,16 +673,20 @@ def pack_components(components, block: Optional[int] = None
 
     ``components`` must come in ascending offset order and cover
     contiguous, adjacent file ranges starting at 0. Zero-series components
-    are skipped. ``block=None`` takes :data:`DEFAULT_PACK_BLOCK` (128): the
-    reference resolves it through its tuning table, whose CPU entry for
-    this kernel is also 128, and the port has no tuning table yet.
+    are skipped. ``block=None`` resolves the layout's ``block_n`` through
+    the tuning table (the ``lb_multi`` entry for Q = ``tuning.PACK_Q``, its
+    canonical batch, and the store's total size on the components' device;
+    :data:`DEFAULT_PACK_BLOCK`, 128, on a miss, as on the CPU). The block
+    is a layout baked into the buffer, so it is picked here, once.
     """
     comps = [(ix, off) for ix, off in components if ix.num_series]
     if not comps:
         raise ValueError("pack_components needs at least one nonempty "
                          "component")
     if block is None:
-        block = DEFAULT_PACK_BLOCK
+        block = tuning.resolve_blocks(
+            "lb_multi", q=tuning.PACK_Q, n=sum(ix.num_series for ix, _ in comps),
+            device=comps[0][0].device)["block_n"]
     expect = 0
     for ix, off in comps:
         if off != expect:

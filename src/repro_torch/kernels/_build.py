@@ -1,12 +1,14 @@
 """Build the CUDA kernels with nvcc and load them through ctypes.
 
 Each ``csrc/*.cu`` file exports a plain C interface (no PyTorch headers), so
-``nvcc`` compiles it in seconds. At first use every source is compiled to
-an object file by its own ``nvcc`` process, all started together, and the
-objects are linked into one shared library that ``ctypes`` loads. The
-library lands in ``kernels/build/`` (listed in ``.gitignore``) under a name
-that hashes the sources and flags, so an edit rebuilds and an unchanged
-tree reuses the last build.
+``nvcc`` compiles it in seconds. At first use every compile unit (a source
+and its defines: ``lower_bound.cu`` is compiled once per SAX width, so that
+its many launch-shape instantiations build in parallel, and once for its C
+entries) is compiled to an object file by its own ``nvcc`` process, all
+started together, and the objects are linked into one shared library that
+``ctypes`` loads. The library lands in ``kernels/build/`` (listed in
+``.gitignore``) under a name that hashes the sources and flags, so an edit
+rebuilds and an unchanged tree reuses the last build.
 
 Nothing here runs at import: the CPU tests import every module, and
 ``nvcc`` is only reached when a kernel is launched on a CUDA tensor (or
@@ -26,7 +28,12 @@ import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "build"
-SOURCES = ("paa_isax.cu", "lower_bound.cu", "euclidean.cu")
+# (source, defines): one nvcc process each.
+UNITS = (("paa_isax.cu", ()),
+         ("lower_bound.cu", ()),
+         *(("lower_bound.cu", (f"-DPARIS_LB_W={w}",)) for w in (4, 8, 16, 32)),
+         ("euclidean.cu", ()))
+SOURCES = tuple(dict.fromkeys(name for name, _ in UNITS))
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 NVCC_FLAGS = (ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -46,19 +53,25 @@ _F = ctypes.c_float
 
 # C signature of every exported entry; each returns cudaGetLastError().
 _SIGNATURES = {
-    # series, breakpoints, sax, paa, B, n, w, n_bp, normalize, stream
-    "paa_isax_launch": (_VP, _VP, _VP, _VP, _L, _I, _I, _I, _I, _VP),
-    # qpaa, sax, bp_padded, out, Q, N, w, n_bp_padded, scale, stream
+    # series, breakpoints, sax, paa, B, n, w, n_bp, normalize, threads,
+    # stream
+    "paa_isax_launch": (_VP, _VP, _VP, _VP, _L, _I, _I, _I, _I, _I, _VP),
+    # qpaa, sax, bp_padded, out, Q, N, w, n_bp_padded, scale, block_q,
+    # threads, rows, stream
     "lower_bound_sq_batch_launch": (_VP, _VP, _VP, _VP, _I, _L, _I, _I, _F,
-                                    _VP),
-    # qpaa, sax, bp_padded, out, N, w, n_bp_padded, scale, stream
-    "lower_bound_sq_launch": (_VP, _VP, _VP, _VP, _L, _I, _I, _F, _VP),
+                                    _I, _I, _I, _VP),
+    # qpaa, sax, bp_padded, out, N, w, n_bp_padded, scale, threads,
+    # blocks_per_sm, stream
+    "lower_bound_sq_launch": (_VP, _VP, _VP, _VP, _L, _I, _I, _F, _I, _I,
+                              _VP),
     # qpaa, sax, bp_padded, block_len, out, Q, N, w, n_bp_padded, block_n,
-    # scale, stream
+    # scale, block_q, threads, rows, stream
     "lower_bound_sq_multi_launch": (_VP, _VP, _VP, _VP, _VP, _I, _L, _I, _I,
-                                    _I, _F, _VP),
-    # queries, raw, positions, out, Q, R, N, n, pos_row_stride, stream
-    "euclid_sq_gather_launch": (_VP, _VP, _VP, _VP, _I, _I, _L, _I, _L, _VP),
+                                    _I, _F, _I, _I, _I, _VP),
+    # queries, raw, positions, out, Q, R, N, n, pos_row_stride, threads,
+    # rows_per_warp, stream
+    "euclid_sq_gather_launch": (_VP, _VP, _VP, _VP, _I, _I, _L, _I, _L, _I,
+                                _I, _VP),
     # query, data, best key, B, n, stream
     "euclid_min_launch": (_VP, _VP, _VP, _L, _I, _VP),
 }
@@ -81,6 +94,8 @@ def nvcc_path() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name, defines in UNITS:
+        h.update(" ".join((name, *defines)).encode())
     for name in SOURCES:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
@@ -93,10 +108,11 @@ def _compile(nvcc: str, tag: str) -> pathlib.Path:
     t0 = time.perf_counter()
     procs = []
     objs = []
-    for name in SOURCES:  # one nvcc per source, all running at once
-        obj = BUILD_DIR / f"{pathlib.Path(name).stem}-{tag}.{os.getpid()}.o"
-        cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)]
-        procs.append((name, subprocess.Popen(
+    for i, (name, defines) in enumerate(UNITS):  # one nvcc each, all at once
+        obj = BUILD_DIR / f"{pathlib.Path(name).stem}{i}-{tag}.{os.getpid()}.o"
+        cmd = [nvcc, *NVCC_FLAGS, *defines, "-c", str(CSRC / name), "-o",
+               str(obj)]
+        procs.append((" ".join((name, *defines)), subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
         objs.append(obj)

@@ -47,11 +47,13 @@
 //     (__fmul_rn / __fadd_rn, no contraction), in the plain version's order
 //     of j, and scale * acc last: every result is bit-identical to it. (The
 //     first segment needs no sum: 0 + d * d is d * d exactly.)
-// In the batch forms each thread owns R rows (4 for w <= 16, 2 for w = 32:
-// 2w bound registers a row) of a 128-thread block, at base + t + i * 128,
-// so every warp store still covers 128 contiguous bytes; each row's (lo, hi)
+// In the batch forms each thread owns R rows (by default 4 for w <= 16, 2
+// for w = 32: 2w bound registers a row) of a T-thread block (by default
+// 128), at base + t + i * T, so every warp store still covers 128
+// contiguous bytes; each row's (lo, hi)
 // bounds are looked up once, from the breakpoint table in shared memory,
-// into registers. Queries are staged in shared memory 64 at a time; each
+// into registers. Queries are staged in shared memory block_q at a time
+// (by default 64); each
 // query's w values are read as float4 broadcasts once for all R rows, and
 // the R accumulators give the issue slots independent work. The output
 // pointer advances by N a query. A thread with a row past N or (masked
@@ -66,8 +68,9 @@
 // of a warp on one symbol, no conflicts) and bank conflicts on the table
 // (0.23 ms on an index's leaf-ordered rows, 0.30 ms on uniform symbols,
 // 0.60 ms with every symbol on one bank). The design removes both:
-//   - A persistent grid. As many 512-thread blocks as the SMs hold at once
-//     (from the occupancy calculator: 4 an SM at w = 16) fill the table
+//   - A persistent grid. As many T-thread blocks (by default 512) as the
+//     SMs hold at once (from the occupancy calculator: 4 an SM at w = 16
+//     and T = 512; blocks_per_sm can cap it lower) fill the table
 //     and load the query's w values into registers once, then walk the
 //     rows with a grid-stride loop, one row a thread a step, with no
 //     barrier inside the loop. A block a 256-row tile paid three
@@ -91,35 +94,79 @@
 // The arithmetic is the batch forms' (region_gap, then __fmul_rn /
 // __fadd_rn in the order of j from the first square, scale last), so its
 // bits are the plain version's; rows past N store nothing.
+//
+// Launch shapes. Every knob above (block_q, T and R of the batch forms; T
+// and the cap on blocks an SM of the single query) is chosen at each launch
+// by the wrapper, from the H100 table of repro_torch/core/tuning.py or the
+// caller; the defaults are the shapes written above. Only shapes that leave
+// each output's arithmetic unchanged are admitted (the same segments, in
+// the same order, for one row in one thread), so every admitted shape gives
+// the default's bits. The admitted (T, R) pairs are instantiated below;
+// anything else is refused with cudaErrorInvalidValue.
+//
+// Build: this file is compiled once per width, with -DPARIS_LB_W=4, 8, 16
+// or 32, each object holding that width's kernels and paris_lb::launch_w,
+// and once without, for the three C entries, which dispatch on w. The
+// widths' objects compile in parallel (kernels/_build.py).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace paris_lb {
+
+constexpr int kBatch = 0, kMasked = 1, kSingle = 2;  // the entries' forms
+
+// One launch as the entries hand it to the object of its width.
+struct Launch {
+  const void* qpaa;
+  const void* sax;
+  const void* bpp;
+  const void* block_len;  // kMasked only
+  void* out;
+  int Q;
+  long long N;
+  int n_bpp;
+  int block_n;  // kMasked only
+  float scale;
+  int block_q;  // batch forms: queries staged a block
+  int threads;  // T
+  int rows;  // batch forms: R, 0 for the width's default
+  int blocks_per_sm;  // kSingle: cap on blocks an SM, 0 for none
+  cudaStream_t stream;
+};
+
+// Defined in the object built with PARIS_LB_W = W.
+template <int W>
+int launch_w(int form, const Launch& a);
+
+}  // namespace paris_lb
+
+#ifdef PARIS_LB_W
+
 namespace {
 
-constexpr int kQueryBlock = 64;
+using paris_lb::kBatch;
+using paris_lb::kMasked;
+using paris_lb::Launch;
+
+constexpr int kMaxQueryBlock = 64;  // block_q's capacity in shared memory
 constexpr int kSymbols = 256;  // uint8 symbols: at most 257 padded breakpoints
 
-// The three entries' forms of the kernel.
-constexpr int kBatch = 0, kMasked = 1, kSingle = 2;
-
-// Rows a thread and threads a block of the batch forms. They are bound by
-// the issue rate and share each query's overhead over R rows (2w bound
-// registers a row).
+// Rows a thread of the batch forms by default. They are bound by the issue
+// rate and share each query's overhead over R rows (2w bound registers a
+// row).
 template <int W>
 constexpr int kRows = W == 32 ? 2 : 4;
-constexpr int kThreads = 128;
 // Blocks an SM must hold in the batch forms, passed to ptxas through
 // __launch_bounds__ as a register cap, from a budget of registers a thread:
 // 2wR bounds, w query values and 24 for the sums, pointers and loop state
-// (168 at w = 16: 3 blocks, 12 warps an SM). Left to itself ptxas took 183
-// for one of the two batch forms, room for only 2 blocks, and that form ran
-// 5% slower than the other at 168.
-template <int W>
-constexpr int kMinBlocks = 65536 / (kThreads * (2 * W * kRows<W> + W + 24));
+// (168 at w = 16, R = 4: 3 blocks of 128 threads, 12 warps an SM). Left to
+// itself ptxas took 183 for one of the two batch forms, room for only 2
+// blocks, and that form ran 5% slower than the other at 168.
+template <int W, int T, int R>
+constexpr int kMinBlocks = 65536 / (T * (2 * W * R + W + 24));
 
-// The single-query kernel: threads a block, and the lanes of a warp, each
-// with its own copy of the breakpoint table.
-constexpr int kSingleThreads = 512;
+// The lanes of a warp, each with its own copy of the single query's
+// breakpoint table.
 constexpr int kLanes = 32;
 
 template <int W>
@@ -208,16 +255,15 @@ __device__ __forceinline__ void bound_rows(const float* s_q, int nq,
 }
 
 // kForm: kBatch, or kMasked, the packed multi-component form with
-// block_len / block_n.
-template <int W, int kForm>
-__device__ __forceinline__ void lb_block(
-    const float* __restrict__ qpaa, const uint8_t* __restrict__ sax,
-    const float* __restrict__ bpp, const int32_t* __restrict__ block_len,
-    float* __restrict__ out, int Q, long long N, int n_bpp, int block_n,
-    float scale) {
-  constexpr int R = kRows<W>, T = kThreads;
+// block_len / block_n. T threads, R rows a thread, block_q queries staged.
+template <int W, int kForm, int T, int R>
+__global__ void __launch_bounds__(T, (kMinBlocks<W, T, R>))
+lb_kernel(const float* __restrict__ qpaa, const uint8_t* __restrict__ sax,
+          const float* __restrict__ bpp, const int32_t* __restrict__ block_len,
+          float* __restrict__ out, int Q, long long N, int n_bpp, int block_n,
+          float scale, int block_q) {
   __shared__ float s_bp[kSymbols + 1];  // bp[s] .. bp[s + 1] bound symbol s
-  __shared__ __align__(16) float s_q[kQueryBlock * W];
+  __shared__ __align__(16) float s_q[kMaxQueryBlock * W];
   for (int i = threadIdx.x; i < n_bpp; i += T) s_bp[i] = bpp[i];
   __syncthreads();
 
@@ -242,8 +288,8 @@ __device__ __forceinline__ void lb_block(
   }
 
   float* o = out + row0;
-  for (int q0 = 0; q0 < Q; q0 += kQueryBlock, o += kQueryBlock * N) {
-    const int nq = min(kQueryBlock, Q - q0);
+  for (int q0 = 0; q0 < Q; q0 += block_q, o += (long long)block_q * N) {
+    const int nq = min(block_q, Q - q0);
     __syncthreads();  // the previous block of queries is no longer read
     for (int i = threadIdx.x; i < nq * W; i += T)
       s_q[i] = qpaa[(long long)q0 * W + i];
@@ -253,16 +299,6 @@ __device__ __forceinline__ void lb_block(
     else if (live)
       bound_rows<W, R, T, true>(s_q, nq, lo, hi, o, N, scale, real, live);
   }
-}
-
-template <int W, int kForm>
-__global__ void __launch_bounds__(kThreads, kMinBlocks<W>)
-lb_kernel(const float* __restrict__ qpaa, const uint8_t* __restrict__ sax,
-          const float* __restrict__ bpp, const int32_t* __restrict__ block_len,
-          float* __restrict__ out, int Q, long long N, int n_bpp, int block_n,
-          float scale) {
-  lb_block<W, kForm>(qpaa, sax, bpp, block_len, out, Q, N, n_bpp, block_n,
-                     scale);
 }
 
 // A row's w uint8 symbols as w / 4 words, one vector load.
@@ -305,10 +341,10 @@ __device__ __forceinline__ void lane_bounds(uint32_t lane_bp, unsigned sym,
       : "r"(lane_bp + sym * (kLanes * (unsigned)sizeof(float))));
 }
 
-// One query against rows [0, N), a persistent grid (see the note at the
-// top).
-template <int W>
-__global__ void __launch_bounds__(kSingleThreads)
+// One query against rows [0, N), a persistent grid of T-thread blocks (see
+// the note at the top).
+template <int W, int T>
+__global__ void __launch_bounds__(T)
 lb_single_kernel(const float* __restrict__ qpaa,
                  const uint8_t* __restrict__ sax,
                  const float* __restrict__ bpp, float* __restrict__ out,
@@ -317,7 +353,7 @@ lb_single_kernel(const float* __restrict__ qpaa,
   // copies, lane (l + s) % kLanes at step l, so a warp's stores of one
   // step land on 32 banks.
   __shared__ float s_bp[(kSymbols + 1) * kLanes];
-  for (int s = threadIdx.x; s < n_bpp; s += kSingleThreads) {
+  for (int s = threadIdx.x; s < n_bpp; s += T) {
     const float v = __ldg(bpp + s);
 #pragma unroll
     for (int l = 0; l < kLanes; ++l) s_bp[s * kLanes + (l + s) % kLanes] = v;
@@ -325,8 +361,8 @@ lb_single_kernel(const float* __restrict__ qpaa,
   float q[W];
 #pragma unroll
   for (int j = 0; j < W; ++j) q[j] = __ldg(qpaa + j);
-  const long long stride = (long long)gridDim.x * kSingleThreads;
-  long long row = (long long)blockIdx.x * kSingleThreads + threadIdx.x;
+  const long long stride = (long long)gridDim.x * T;
+  long long row = (long long)blockIdx.x * T + threadIdx.x;
   uint32_t cur[W / 4] = {};
   if (row < N) load_words<W>(sax + row * W, cur);
   __syncthreads();
@@ -352,66 +388,102 @@ lb_single_kernel(const float* __restrict__ qpaa,
   }
 }
 
-// The single query's grid: as many blocks as the card holds at once, or
-// one a row tile where N is smaller.
-template <int W>
-int launch_single(const void* qpaa, const void* sax, const void* bpp,
-                  void* out, long long N, int n_bpp, float scale,
-                  cudaStream_t s) {
+// The single query's grid: as many blocks as the card holds at once (at
+// most blocks_per_sm an SM, where that is set), or one a row tile where N
+// is smaller.
+template <int W, int T>
+int launch_single(const Launch& a) {
   int dev, sms, per_sm;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, lb_single_kernel<W>, kSingleThreads, 0);
+        &per_sm, lb_single_kernel<W, T>, T, 0);
   if (err != cudaSuccess) return (int)err;
-  const long long tiles = (N + kSingleThreads - 1) / kSingleThreads;
+  if (a.blocks_per_sm > 0 && a.blocks_per_sm < per_sm)
+    per_sm = a.blocks_per_sm;
+  const long long tiles = (a.N + T - 1) / T;
   const long long blocks = tiles < (long long)sms * per_sm
                                ? tiles : (long long)sms * per_sm;
-  lb_single_kernel<W><<<(unsigned)blocks, kSingleThreads, 0, s>>>(
-      (const float*)qpaa, (const uint8_t*)sax, (const float*)bpp,
-      (float*)out, N, n_bpp, scale);
+  lb_single_kernel<W, T><<<(unsigned)blocks, T, 0, a.stream>>>(
+      (const float*)a.qpaa, (const uint8_t*)a.sax, (const float*)a.bpp,
+      (float*)a.out, a.N, a.n_bpp, a.scale);
   return (int)cudaGetLastError();
 }
 
-template <int W, int kForm>
-int launch_w(const void* qpaa, const void* sax, const void* bpp,
-             const void* block_len, void* out, int Q, long long N, int n_bpp,
-             int block_n, float scale, cudaStream_t s) {
-  if constexpr (kForm == kSingle) {
-    return launch_single<W>(qpaa, sax, bpp, out, N, n_bpp, scale, s);
-  } else {
-    constexpr long long tile = (long long)kThreads * kRows<W>;
-    const long long blocks = (N + tile - 1) / tile;
-    lb_kernel<W, kForm><<<(unsigned)blocks, kThreads, 0, s>>>(
-        (const float*)qpaa, (const uint8_t*)sax, (const float*)bpp,
-        (const int32_t*)block_len, (float*)out, Q, N, n_bpp, block_n, scale);
-    return (int)cudaGetLastError();
-  }
+template <int W, int kForm, int T, int R>
+int launch_batch(const Launch& a) {
+  constexpr long long tile = (long long)T * R;
+  const long long blocks = (a.N + tile - 1) / tile;
+  lb_kernel<W, kForm, T, R><<<(unsigned)blocks, T, 0, a.stream>>>(
+      (const float*)a.qpaa, (const uint8_t*)a.sax, (const float*)a.bpp,
+      (const int32_t*)a.block_len, (float*)a.out, a.Q, a.N, a.n_bpp,
+      a.block_n, a.scale, a.block_q);
+  return (int)cudaGetLastError();
 }
 
-template <int kForm>
-int launch(const void* qpaa, const void* sax, const void* bpp,
-           const void* block_len, void* out, int Q, long long N, int w,
-           int n_bpp, int block_n, float scale, void* stream) {
-  if (Q == 0 || N == 0) return (int)cudaGetLastError();
-  if (n_bpp < 2 || n_bpp > kSymbols + 1 || (kForm == kMasked && block_n <= 0))
+// The admitted (T, R) of the batch forms: T in {128, 256}, R in {2, the
+// width's default}.
+template <int W, int kForm>
+int launch_batch_shape(const Launch& a) {
+  const int rows = a.rows ? a.rows : kRows<W>;
+  if (a.block_q < 1 || a.block_q > kMaxQueryBlock)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
+  if (rows == kRows<W>) {
+    if (a.threads == 128) return launch_batch<W, kForm, 128, kRows<W>>(a);
+    if (a.threads == 256) return launch_batch<W, kForm, 256, kRows<W>>(a);
+  }
+  if constexpr (kRows<W> != 2) {
+    if (rows == 2) {
+      if (a.threads == 128) return launch_batch<W, kForm, 128, 2>(a);
+      if (a.threads == 256) return launch_batch<W, kForm, 256, 2>(a);
+    }
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+namespace paris_lb {
+
+template <int W>
+int launch_w(int form, const Launch& a) {
+  if (form == kSingle) {  // T in {256, 512}
+    if (a.threads == 256) return launch_single<W, 256>(a);
+    if (a.threads == 512) return launch_single<W, 512>(a);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (form == kMasked) return launch_batch_shape<W, kMasked>(a);
+  return launch_batch_shape<W, kBatch>(a);
+}
+
+template int launch_w<PARIS_LB_W>(int form, const Launch& a);
+
+}  // namespace paris_lb
+
+#else  // the C entries
+
+namespace {
+
+using paris_lb::kBatch;
+using paris_lb::kMasked;
+using paris_lb::kSingle;
+using paris_lb::launch_w;
+
+int launch(int form, const paris_lb::Launch& a, int w) {
+  if (a.Q == 0 || a.N == 0) return (int)cudaGetLastError();
+  if (a.n_bpp < 2 || a.n_bpp > 257 || (form == kMasked && a.block_n <= 0))
+    return (int)cudaErrorInvalidValue;
   switch (w) {
     case 4:
-      return launch_w<4, kForm>(qpaa, sax, bpp, block_len, out, Q, N, n_bpp,
-                                block_n, scale, s);
+      return launch_w<4>(form, a);
     case 8:
-      return launch_w<8, kForm>(qpaa, sax, bpp, block_len, out, Q, N, n_bpp,
-                                block_n, scale, s);
+      return launch_w<8>(form, a);
     case 16:
-      return launch_w<16, kForm>(qpaa, sax, bpp, block_len, out, Q, N,
-                                 n_bpp, block_n, scale, s);
+      return launch_w<16>(form, a);
     case 32:
-      return launch_w<32, kForm>(qpaa, sax, bpp, block_len, out, Q, N,
-                                 n_bpp, block_n, scale, s);
+      return launch_w<32>(form, a);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -422,17 +494,24 @@ int launch(const void* qpaa, const void* sax, const void* bpp,
 extern "C" int lower_bound_sq_batch_launch(const void* qpaa, const void* sax,
                                            const void* bpp, void* out, int Q,
                                            long long N, int w, int n_bpp,
-                                           float scale, void* stream) {
-  return launch<kBatch>(qpaa, sax, bpp, nullptr, out, Q, N, w, n_bpp, 0, scale,
-                        stream);
+                                           float scale, int block_q,
+                                           int threads, int rows,
+                                           void* stream) {
+  return launch(kBatch,
+                {qpaa, sax, bpp, nullptr, out, Q, N, n_bpp, 0, scale, block_q,
+                 threads, rows, 0, (cudaStream_t)stream},
+                w);
 }
 
 extern "C" int lower_bound_sq_launch(const void* qpaa, const void* sax,
                                      const void* bpp, void* out, long long N,
                                      int w, int n_bpp, float scale,
+                                     int threads, int blocks_per_sm,
                                      void* stream) {
-  return launch<kSingle>(qpaa, sax, bpp, nullptr, out, 1, N, w, n_bpp, 0,
-                         scale, stream);
+  return launch(kSingle,
+                {qpaa, sax, bpp, nullptr, out, 1, N, n_bpp, 0, scale, 1,
+                 threads, 0, blocks_per_sm, (cudaStream_t)stream},
+                w);
 }
 
 extern "C" int lower_bound_sq_multi_launch(const void* qpaa, const void* sax,
@@ -440,7 +519,12 @@ extern "C" int lower_bound_sq_multi_launch(const void* qpaa, const void* sax,
                                            const void* block_len, void* out,
                                            int Q, long long N, int w,
                                            int n_bpp, int block_n, float scale,
+                                           int block_q, int threads, int rows,
                                            void* stream) {
-  return launch<kMasked>(qpaa, sax, bpp, block_len, out, Q, N, w, n_bpp,
-                         block_n, scale, stream);
+  return launch(kMasked,
+                {qpaa, sax, bpp, block_len, out, Q, N, n_bpp, block_n, scale,
+                 block_q, threads, rows, 0, (cudaStream_t)stream},
+                w);
 }
+
+#endif  // PARIS_LB_W

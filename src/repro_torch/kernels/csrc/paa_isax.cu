@@ -6,10 +6,13 @@
 //
 // Bound on the H100: memory. The kernel reads every series once (B*n*4 bytes,
 // 17.2 GB at B = 2^24, n = 256) and writes 5 bytes per segment; the work per
-// byte read is one add. Design: one thread per (series, segment). The thread
-// sums its n/w values in the order the plain version and the reference use
-// (windows of 32 left to right, then the window totals), so PAA and symbols
-// are bit-identical to both; the segment is read with
+// byte read is one add. Design: one thread per (series, segment), in blocks
+// of T threads (by default 256; the wrapper picks T among 128, 256, 512 and
+// 1024, from the H100 table of repro_torch/core/tuning.py or the caller: a
+// thread's sums do not depend on T, so every T gives the same bits). The
+// thread sums its n/w values in the order the plain version and the
+// reference use (windows of 32 left to right, then the window totals), so
+// PAA and symbols are bit-identical to both; the segment is read with
 // 16-byte loads when the segment length allows, and a warp covers 32/w whole
 // series, so each warp reads contiguous memory. The symbol is a binary search
 // (count of breakpoints strictly below the value) over the breakpoint table
@@ -22,8 +25,6 @@
 #include <stdint.h>
 
 namespace {
-
-constexpr int kThreads = 256;
 
 __device__ __forceinline__ float group_sum(float v, int w) {
   // Butterfly over the w lanes of one series (w divides 32, groups aligned).
@@ -73,8 +74,8 @@ __device__ __forceinline__ float segment_sq_dev(const float* __restrict__ seg_pt
   return acc;
 }
 
-template <bool kVec4>
-__global__ void __launch_bounds__(kThreads)
+template <bool kVec4, int T>
+__global__ void __launch_bounds__(T)
 paa_isax_kernel(const float* __restrict__ series, const float* __restrict__ bp,
                 uint8_t* __restrict__ sax, float* __restrict__ paa,
                 long long total, int n, int w, int n_bp, int normalize) {
@@ -112,28 +113,50 @@ paa_isax_kernel(const float* __restrict__ series, const float* __restrict__ bp,
   paa[t] = p;
 }
 
+template <int T>
+int launch_t(const void* series, const void* bp, void* sax, void* paa,
+             long long total, int n, int w, int n_bp, int normalize,
+             cudaStream_t s) {
+  const long long blocks = (total + T - 1) / T;
+  const int seg = n / w;
+  const bool vec4 = seg % 4 == 0 && ((uintptr_t)series & 15) == 0;
+  const size_t smem = (size_t)(n_bp > 0 ? n_bp : 1) * sizeof(float);
+  if (vec4)
+    paa_isax_kernel<true, T><<<(unsigned)blocks, T, smem, s>>>(
+        (const float*)series, (const float*)bp, (uint8_t*)sax, (float*)paa,
+        total, n, w, n_bp, normalize);
+  else
+    paa_isax_kernel<false, T><<<(unsigned)blocks, T, smem, s>>>(
+        (const float*)series, (const float*)bp, (uint8_t*)sax, (float*)paa,
+        total, n, w, n_bp, normalize);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int paa_isax_launch(const void* series, const void* bp, void* sax,
                                void* paa, long long B, int n, int w, int n_bp,
-                               int normalize, void* stream) {
+                               int normalize, int threads, void* stream) {
   if (w <= 0 || n % w || n / w > 32 * 32 || n_bp > 255 ||
       (normalize && (w > 32 || (w & (w - 1)))))
     return (int)cudaErrorInvalidValue;
   const long long total = B * w;
   if (total == 0) return (int)cudaGetLastError();
-  const long long blocks = (total + kThreads - 1) / kThreads;
-  const int seg = n / w;
-  const bool vec4 = seg % 4 == 0 && ((uintptr_t)series & 15) == 0;
-  const size_t smem = (size_t)(n_bp > 0 ? n_bp : 1) * sizeof(float);
   cudaStream_t s = (cudaStream_t)stream;
-  if (vec4)
-    paa_isax_kernel<true><<<(unsigned)blocks, kThreads, smem, s>>>(
-        (const float*)series, (const float*)bp, (uint8_t*)sax, (float*)paa,
-        total, n, w, n_bp, normalize);
-  else
-    paa_isax_kernel<false><<<(unsigned)blocks, kThreads, smem, s>>>(
-        (const float*)series, (const float*)bp, (uint8_t*)sax, (float*)paa,
-        total, n, w, n_bp, normalize);
-  return (int)cudaGetLastError();
+  switch (threads) {  // the admitted block sizes
+    case 128:
+      return launch_t<128>(series, bp, sax, paa, total, n, w, n_bp, normalize,
+                           s);
+    case 256:
+      return launch_t<256>(series, bp, sax, paa, total, n, w, n_bp, normalize,
+                           s);
+    case 512:
+      return launch_t<512>(series, bp, sax, paa, total, n, w, n_bp, normalize,
+                           s);
+    case 1024:
+      return launch_t<1024>(series, bp, sax, paa, total, n, w, n_bp,
+                            normalize, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

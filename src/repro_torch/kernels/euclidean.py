@@ -13,7 +13,10 @@ stride 0.
 Bound on the H100: memory, the gathered rows (Q*R*n*4 bytes for per-query
 positions). The kernel gives each query a block, with the query in shared
 memory, and each candidate row a warp whose lanes read it in 16-byte
-pieces, several rows in flight per warp. It sums in another order than
+pieces, several rows in flight per warp. The block's ``threads`` and the
+``rows_per_warp`` resolve at each call through ``repro_torch.core.tuning``
+(``euclid``: explicit kwarg, the committed H100 table for the (Q, R)
+bucket, then 256 and 4); each admitted pair gives the same bits. It sums in another order than
 ``ref.euclid_sq_gather``, so the two agree to float rounding.
 
 :func:`euclid_min_cuda` replaces ``_euclid_min_kernel``
@@ -29,6 +32,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import tuning
 from repro_torch.kernels import _build
 
 # Kernel launches since the caller last set them to 0, one count per entry.
@@ -39,7 +43,8 @@ MAX_QUERIES = 65535  # one grid row per query
 
 
 def euclid_sq_gather_cuda(queries: torch.Tensor, raw: torch.Tensor,
-                          positions: torch.Tensor) -> torch.Tensor:
+                          positions: torch.Tensor, *, threads=None,
+                          rows_per_warp=None) -> torch.Tensor:
     """Launch the kernel; ``positions`` is (Q, R), or (R,) shared by all."""
     _build.require(queries, "queries", torch.float32, 2)
     _build.require(raw, "raw", torch.float32, 2)
@@ -65,11 +70,14 @@ def euclid_sq_gather_cuda(queries: torch.Tensor, raw: torch.Tensor,
         r, stride = positions.shape[1], positions.shape[1]
     else:
         r, stride = positions.shape[0], 0
+    shape = tuning.launch_shape("euclid", raw.device, q=n_q, n=r,
+                                threads=threads, rows_per_warp=rows_per_warp)
     out = torch.empty((n_q, r), dtype=torch.float32, device=raw.device)
     lib = _build.load()
     err = lib.euclid_sq_gather_launch(
         queries.data_ptr(), raw.data_ptr(), positions.data_ptr(),
-        out.data_ptr(), n_q, r, n_rows, n, stride, _build.stream_of(raw))
+        out.data_ptr(), n_q, r, n_rows, n, stride, shape["threads"],
+        shape["rows_per_warp"], _build.stream_of(raw))
     _build.check(err, "euclid_sq_gather")
     launches.add()
     return out

@@ -32,6 +32,13 @@ at w = 32) in registers and loops over the queries staged in shared
 memory, so each query's loads and loop overhead are shared by its rows;
 every store is coalesced.
 
+Launch shapes: each wrapper resolves its kernel's shape at each call
+through ``repro_torch.core.tuning`` (``lb_batch``: ``block_q``, ``threads``
+and ``rows``; ``lb_multi``: the same; ``lb_single``: ``threads`` and
+``blocks_per_sm``): an explicit kwarg wins, then the committed H100 table
+for the call's (Q, N) bucket, then the defaults written above. A shape the
+source does not instantiate raises before anything launches.
+
 The single-query form is bound by bytes (16 B read and 4 B written a row).
 In the batch geometry it reached 43% of that bound: each block of 256 rows
 paid three dependent memory latencies and three barriers (the breakpoint
@@ -49,6 +56,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import tuning
 from repro_torch.kernels import _build
 
 # Kernel launches since the caller last set them to 0, one count per entry.
@@ -71,8 +79,9 @@ def _check_sax(sax: torch.Tensor, w: int, bp_padded: torch.Tensor) -> None:
 
 
 def lower_bound_sq_batch_cuda(query_paa: torch.Tensor, sax: torch.Tensor,
-                              bp_padded: torch.Tensor,
-                              series_length: int) -> torch.Tensor:
+                              bp_padded: torch.Tensor, series_length: int, *,
+                              block_q=None, threads=None,
+                              rows=None) -> torch.Tensor:
     """Launch the kernel on CUDA tensors; returns (Q, N) float32 bounds."""
     _build.require(query_paa, "query_paa", torch.float32, 2)
     _build.require(sax, "sax", torch.uint8, 2)
@@ -81,11 +90,14 @@ def lower_bound_sq_batch_cuda(query_paa: torch.Tensor, sax: torch.Tensor,
     n_q, w = query_paa.shape
     _check_sax(sax, w, bp_padded)
     n = sax.shape[0]
+    shape = tuning.launch_shape("lb_batch", sax.device, q=n_q, n=n,
+                                block_q=block_q, threads=threads, rows=rows)
     out = torch.empty((n_q, n), dtype=torch.float32, device=sax.device)
     lib = _build.load()
     err = lib.lower_bound_sq_batch_launch(
         query_paa.data_ptr(), sax.data_ptr(), bp_padded.data_ptr(),
         out.data_ptr(), n_q, n, w, bp_padded.numel(), series_length / w,
+        shape["block_q"], shape["threads"], shape["rows"],
         _build.stream_of(sax))
     _build.check(err, "lower_bound_sq_batch")
     launches.add()
@@ -93,8 +105,8 @@ def lower_bound_sq_batch_cuda(query_paa: torch.Tensor, sax: torch.Tensor,
 
 
 def lower_bound_sq_cuda(query_paa: torch.Tensor, sax: torch.Tensor,
-                        bp_padded: torch.Tensor,
-                        series_length: int) -> torch.Tensor:
+                        bp_padded: torch.Tensor, series_length: int, *,
+                        threads=None, blocks_per_sm=None) -> torch.Tensor:
     """One (w,) query against (N, w) SAX rows; returns (N,) float32 bounds."""
     _build.require(query_paa, "query_paa", torch.float32, 1)
     _build.require(sax, "sax", torch.uint8, 2)
@@ -103,12 +115,14 @@ def lower_bound_sq_cuda(query_paa: torch.Tensor, sax: torch.Tensor,
     w = query_paa.shape[0]
     _check_sax(sax, w, bp_padded)
     n = sax.shape[0]
+    shape = tuning.launch_shape("lb_single", sax.device, q=1, n=n,
+                                threads=threads, blocks_per_sm=blocks_per_sm)
     out = torch.empty((n,), dtype=torch.float32, device=sax.device)
     lib = _build.load()
     err = lib.lower_bound_sq_launch(
         query_paa.data_ptr(), sax.data_ptr(), bp_padded.data_ptr(),
         out.data_ptr(), n, w, bp_padded.numel(), series_length / w,
-        _build.stream_of(sax))
+        shape["threads"], shape["blocks_per_sm"], _build.stream_of(sax))
     _build.check(err, "lower_bound_sq")
     single_launches.add()
     return out
@@ -116,11 +130,13 @@ def lower_bound_sq_cuda(query_paa: torch.Tensor, sax: torch.Tensor,
 
 def lower_bound_sq_multi_cuda(query_paa: torch.Tensor, sax: torch.Tensor,
                               bp_padded: torch.Tensor, series_length: int,
-                              block_len: torch.Tensor,
-                              block_n: int) -> torch.Tensor:
+                              block_len: torch.Tensor, block_n: int, *,
+                              block_q=None, threads=None,
+                              rows=None) -> torch.Tensor:
     """(Q, w) PAA x (N_pad, w) packed SAX -> (Q, N_pad), +inf off the blocks.
 
-    Row ``r`` is real iff ``r % block_n < block_len[r // block_n]``.
+    Row ``r`` is real iff ``r % block_n < block_len[r // block_n]``;
+    ``block_n`` is the buffer's layout, never resolved from the table.
     """
     _build.require(query_paa, "query_paa", torch.float32, 2)
     _build.require(sax, "sax", torch.uint8, 2)
@@ -135,12 +151,16 @@ def lower_bound_sq_multi_cuda(query_paa: torch.Tensor, sax: torch.Tensor,
     if block_len.shape[0] != n // block_n:
         raise ValueError(f"block_len has {block_len.shape[0]} entries for "
                          f"{n // block_n} blocks")
+    shape = tuning.launch_shape("lb_multi", sax.device, q=n_q, n=n,
+                                block_q=block_q, threads=threads, rows=rows,
+                                block_n=block_n)
     out = torch.empty((n_q, n), dtype=torch.float32, device=sax.device)
     lib = _build.load()
     err = lib.lower_bound_sq_multi_launch(
         query_paa.data_ptr(), sax.data_ptr(), bp_padded.data_ptr(),
         block_len.data_ptr(), out.data_ptr(), n_q, n, w, bp_padded.numel(),
-        block_n, series_length / w, _build.stream_of(sax))
+        block_n, series_length / w, shape["block_q"], shape["threads"],
+        shape["rows"], _build.stream_of(sax))
     _build.check(err, "lower_bound_sq_multi")
     multi_launches.add()
     return out

@@ -5,12 +5,19 @@ Counterpart of ``repro/kernels/ops.py``. Every op takes ``impl``:
   * ``"auto"`` — the CUDA kernel for a tensor on the card, the plain
                  PyTorch version for a tensor on the CPU;
   * ``"ref"``  — the plain version wherever the tensor lies (the CPU tests,
-                 and ``chip_smoke.py`` comparing a kernel with it on the card).
+                 and ``chip_smoke.py`` comparing a kernel with it on the card);
+  * ``"sisd"`` — :func:`lower_bound_sq` only: the paper's Table-1 scalar
+                 baseline (``ref.lower_bound_sq_sisd``), on whatever device
+                 the tensor lies. Only an explicit request reaches it.
 
 The device of the tensor decides, nothing else: a CUDA tensor launches the
 kernel or raises (no build, a refused launch, an unsupported shape), and
-there is no ``try`` that gives way to the plain version. There is no block
-tuning table yet; each kernel fixes its launch shape.
+there is no ``try`` that gives way to the plain version. A kernel's launch
+shape (``block_q``, ``threads``, ``rows``, ``blocks_per_sm``,
+``rows_per_warp``) is resolved through ``repro_torch.core.tuning`` (once
+per Q/N bucket until the table changes): an explicit kwarg here wins, then
+the committed H100 table, then the registry default. On the CPU those knobs
+are dead.
 """
 
 from __future__ import annotations
@@ -37,7 +44,8 @@ def _use_kernel(t: torch.Tensor, impl: str) -> bool:
     if impl == "ref":
         return False
     if impl != "auto":
-        raise ValueError(f"impl must be 'auto' or 'ref', got {impl!r}")
+        raise ValueError(f"impl must be 'auto', 'ref' or (lower_bound_sq "
+                         f"only) 'sisd', got {impl!r}")
     if t.device.type == "cuda":
         return True
     if t.device.type == "cpu":
@@ -65,6 +73,8 @@ def lower_bound_sq(
     *,
     impl: str = "auto",
     transposed: bool = False,
+    threads=None,
+    blocks_per_sm=None,
 ) -> torch.Tensor:
     """(w,) PAA x (N, w) sax -> (N,) squared lower bounds.
 
@@ -75,10 +85,14 @@ def lower_bound_sq(
     changes nothing (and the answer is the same in both packages).
     """
     del transposed  # a TPU layout choice; one layout serves both here
+    if impl == "sisd":
+        return _ref.lower_bound_sq_sisd(query_paa, sax, bp_padded,
+                                        series_length)
     if not _use_kernel(sax, impl):
         return _ref.lower_bound_sq(query_paa, sax, bp_padded, series_length)
     return _lb.lower_bound_sq_cuda(
-        query_paa.contiguous(), sax, bp_padded, series_length)
+        query_paa.contiguous(), sax, bp_padded, series_length,
+        threads=threads, blocks_per_sm=blocks_per_sm)
 
 
 def lower_bound_sq_batch(
@@ -88,13 +102,17 @@ def lower_bound_sq_batch(
     series_length: int,
     *,
     impl: str = "auto",
+    block_q=None,
+    threads=None,
+    rows=None,
 ) -> torch.Tensor:
     """(Q, w) PAA batch x (N, w) sax -> (Q, N) squared lower bounds."""
     if not _use_kernel(sax, impl):
         return _ref.lower_bound_sq_batch(
             query_paa, sax, bp_padded, series_length)
     return _lb.lower_bound_sq_batch_cuda(
-        query_paa.contiguous(), sax, bp_padded, series_length)
+        query_paa.contiguous(), sax, bp_padded, series_length,
+        block_q=block_q, threads=threads, rows=rows)
 
 
 def lower_bound_sq_multi(
@@ -106,6 +124,9 @@ def lower_bound_sq_multi(
     *,
     impl: str = "auto",
     block_n: int = 128,
+    block_q=None,
+    threads=None,
+    rows=None,
 ) -> torch.Tensor:
     """(Q, w) PAA x (N_pad, w) PACKED multi-component sax -> (Q, N_pad).
 
@@ -113,7 +134,8 @@ def lower_bound_sq_multi(
     to a ``block_n`` multiple (``core.search.pack_components``), and
     ``block_len[j]`` counts the real rows of block ``j``. Every other row
     (component pads, dead tail blocks) comes back +inf, so no selection
-    can pick one. ``block_n`` is the layout the buffer was packed with.
+    can pick one. ``block_n`` is the layout the buffer was packed with
+    (a property of the data, so it is never looked up in the table).
     """
     n = sax.shape[0]
     if n % block_n:
@@ -129,7 +151,8 @@ def lower_bound_sq_multi(
             query_paa, sax, bp_padded, series_length, valid.reshape(-1))
     return _lb.lower_bound_sq_multi_cuda(
         query_paa.contiguous(), sax, bp_padded, series_length,
-        block_len.to(torch.int32).contiguous(), block_n)
+        block_len.to(torch.int32).contiguous(), block_n, block_q=block_q,
+        threads=threads, rows=rows)
 
 
 def paa_isax(
@@ -139,11 +162,13 @@ def paa_isax(
     *,
     impl: str = "auto",
     normalize: bool = True,
+    threads=None,
 ) -> tuple:
     """(B, n) raw -> ((B, w) uint8 sax, (B, w) f32 paa)."""
     if not _use_kernel(series, impl):
         return _ref.paa_isax(series, segments, breakpoints, normalize)
-    return _pi.paa_isax_cuda(series, breakpoints, segments, normalize)
+    return _pi.paa_isax_cuda(series, breakpoints, segments, normalize,
+                             threads=threads)
 
 
 def euclid_sq_gather(
@@ -152,6 +177,8 @@ def euclid_sq_gather(
     positions: torch.Tensor,
     *,
     impl: str = "auto",
+    threads=None,
+    rows_per_warp=None,
 ) -> torch.Tensor:
     """(Q, n) queries x raw rows at positions -> (Q, R) squared distances.
 
@@ -163,7 +190,8 @@ def euclid_sq_gather(
             positions = positions[None, :].expand(queries.shape[0], -1)
         return _ref.euclid_sq_gather(queries, raw, positions)
     return _euclid.euclid_sq_gather_cuda(
-        queries.contiguous(), raw, positions.to(torch.int32).contiguous())
+        queries.contiguous(), raw, positions.to(torch.int32).contiguous(),
+        threads=threads, rows_per_warp=rows_per_warp)
 
 
 def euclid_sq(

@@ -36,6 +36,43 @@ def lower_bound_sq(
     return (series_length / w) * isax.sum_last(d * d)
 
 
+def lower_bound_sq_sisd(
+    query_paa: torch.Tensor,
+    sax: torch.Tensor,
+    bp_padded: torch.Tensor,
+    series_length: int,
+) -> torch.Tensor:
+    """Scalar-at-a-time ("SISD") lower bound: the paper's Table-1 baseline.
+
+    One candidate at a time, one segment at a time, with branching control
+    flow per element, in float32 on the tensors' device: deliberately the
+    unvectorized formulation the paper compares its SIMD kernel against
+    (``repro/kernels/ref.py::lower_bound_sq_sisd``). Each candidate's sum
+    runs over the segments in order from 0, ``acc + d * d``, then the
+    scale, so its bits are :func:`lower_bound_sq_batch`'s. Slow by design:
+    only ``ops.lower_bound_sq(impl="sisd")`` reaches it.
+    """
+    n_cand, w = sax.shape
+    scale = series_length / w
+    out = torch.empty((n_cand,), dtype=torch.float32, device=sax.device)
+    zero = torch.zeros((), dtype=torch.float32, device=sax.device)
+    q_all = query_paa.to(torch.float32)
+    for i in range(n_cand):
+        acc = zero
+        for j in range(w):
+            s = int(sax[i, j])
+            bl, bu, q = bp_padded[s], bp_padded[s + 1], q_all[j]
+            if q > bu:
+                d = q - bu
+            elif q < bl:
+                d = bl - q
+            else:
+                d = zero
+            acc = acc + d * d
+        out[i] = scale * acc
+    return out
+
+
 def lower_bound_sq_batch(
     query_paa: torch.Tensor,
     sax: torch.Tensor,

@@ -671,3 +671,83 @@ def test_cuda_mesh_matches_cpu_mesh(cuda_device, tmp_path, world, backend):
     for name in ("paa_isax", "lower_bound_sq_batch", "lower_bound_sq",
                  "euclid_sq"):
         assert launched[name] > 0, launched
+
+
+# Every admitted launch shape (``repro_torch.core.tuning``) against the
+# default shape, bitwise, and the default against the plain version, at
+# edge sizes: Q past one 64-query block and not a multiple of 32, N not a
+# multiple of any row tile, packed pads, lengths on the scalar-load path.
+TUNING_EDGE_SHAPES = {"lb_batch": (70, 3001), "lb_multi": (70, 3001),
+                      "lb_single": (1, 5001), "euclid": (70, 333),
+                      "paa_isax": (1, 3001)}
+EUCLID_LENGTHS = {4: 100, 8: 64, 16: 256, 32: 512}  # 100: scalar loads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [4, 8, 16, 32])
+@pytest.mark.parametrize("kernel", sorted(TUNING_EDGE_SHAPES))
+def test_cuda_every_admitted_launch_shape_bitwise(cuda_device, kernel, w):
+    from repro_torch.core import tuning
+
+    q, n = TUNING_EDGE_SHAPES[kernel]
+    length = EUCLID_LENGTHS[w] if kernel == "euclid" else 256
+
+    def runner(impl):
+        return tuning.kernel_runner(kernel, q=q, n=n, impl=impl,
+                                    length=length, segments=w, seed=w,
+                                    raw_rows=4096, device=cuda_device)
+
+    run = runner("auto")
+
+    def outputs(params=None):
+        out = run(params)
+        torch.cuda.synchronize()
+        return out if isinstance(out, tuple) else (out,)
+
+    base = outputs()
+    plain = runner("ref")()
+    plain = plain if isinstance(plain, tuple) else (plain,)
+    if kernel == "euclid":
+        torch.testing.assert_close(base[0], plain[0], rtol=1e-5, atol=1e-5)
+    else:
+        assert all(torch.equal(a, b) for a, b in zip(base, plain))
+    for point in tuning.lattice_points(kernel):
+        got = outputs(point)
+        if kernel == "lb_multi":  # other block_n: other pads; real rows
+            assert torch.isinf(got[0][:, n:]).all()
+            got, ref = (got[0][:, :n],), (base[0][:, :n],)
+        else:
+            ref = base
+        assert all(torch.equal(a, b) for a, b in zip(ref, got)), point
+
+
+@pytest.mark.cuda
+def test_cuda_unadmitted_launch_shape_raises(cuda_device):
+    sax = torch.zeros((300, 16), dtype=torch.uint8, device=cuda_device)
+    qp = torch.zeros((4, 16), device=cuda_device)
+    bpp = tx.padded_breakpoints(256, cuda_device)
+    with pytest.raises(ValueError, match="not an admitted"):
+        tops.lower_bound_sq_batch(qp, sax, bpp, 256, threads=64)
+    with pytest.raises(ValueError, match="not an admitted"):
+        tops.euclid_sq_gather(torch.zeros((2, 64), device=cuda_device),
+                              torch.zeros((10, 64), device=cuda_device),
+                              torch.zeros(5, dtype=torch.int32,
+                                          device=cuda_device),
+                              rows_per_warp=16)
+
+
+@pytest.mark.cuda
+def test_cuda_classifier_matches_cpu(cuda_device):
+    from repro_torch.core import build_index
+    from repro_torch.core.classifier import KnnClassifier
+
+    raw = random_walk(4000, 128, seed=161)
+    labels = (raw[:, -1] > raw[:, 0]).astype(np.int64)
+    queries = random_walk(6, 128, seed=162)
+    cpu = KnnClassifier(build_index(raw, device="cpu"), labels, k=5)
+    card = KnnClassifier(build_index(raw, device=cuda_device),
+                         torch.from_numpy(labels).to(cuda_device), k=5)
+    for q in queries:
+        assert card.predict(q) == card.predict_brute(q) == cpu.predict(q)
+        np.testing.assert_array_equal(card.kneighbors(q)[1].cpu().numpy(),
+                                      cpu.kneighbors(q)[1].numpy())
