@@ -108,16 +108,48 @@ Phases, each of which raises (exit code 1) on a failed check:
                 ``build_index`` over the same series, and every answer that
                 index's (checked against an on-card oracle) bit for bit; at
                 phase 4's N, phase 4's index and answers. Peak device
-                memory under 70 GiB.
+                memory under 70 GiB;
+  lm          — the LM serving path (``repro_torch.models``,
+                ``repro_torch.serving``) at granite-34b's full width (d_model
+                6144, 48 heads, MQA, d_ff 24576, vocab 49152, bf16), 8 of its
+                88 layers (47.2 B parameters do not fit one card), weights
+                drawn on the card from ``--seed``: (a) a kNN-LM datastore:
+                256 bigram sequences of 4096 tokens through ``Model.apply``
+                (flash attention) in chunks of 4, the first 256 logits of
+                each position kept, 2^20 (state, next token) pairs, then
+                ``build_index``; (b) the kNN-LM loop of
+                ``examples/retrieval_serve.py`` (16 sequences, 16-token
+                prompts, 64 steps, k 8, lam 0.3, round 512) over an
+                ``IngestingRouter`` of 2 base shards, each step's states
+                appended and the deltas folded every 4 steps; every step's
+                positions equal an on-card brute force over the datastore
+                as it stands, distances within 1e-4 relative; (c) a
+                ``SlotBatcher`` (8 slots, 32 requests of 4-12 tokens, 32 new
+                tokens each); then (e) its kernels against their plain
+                versions at its shapes and (d) float32 checks: depth 2 on
+                the card against the host CPU (prefill and 8 greedy steps,
+                logits within 1e-3 of the largest, tokens equal), decode
+                after prefill against the full forward at depth 8, and each
+                batcher answer against its own greedy generation. It prints
+                the datastore's tokens/s beside its FLOP bound, decode ms
+                beside its byte bound, retrieval, append and compaction ms,
+                and the peak device memory (under 70 GiB). With
+                ``--profile-lm`` it then traces, by ``torch.profiler`` and
+                after the launch counts are read, three windows over the
+                phase's own objects: one datastore chunk, prefill and 8
+                decode steps, and one retrieval step of a step's LM states
+                over a fresh router on the phase's datastore; each window's
+                wall, busy time, idle share and top kernels go into the
+                ``{"lm": ...}`` line under ``profile``.
 
-Phases 4, 5, classify, serve, mesh, 7 and 8 each drive a path with every
-launch count set to 0 just before and read just after; each kernel of a
-path must have launched on it, and a kernel's ``launches`` are its counts
+Phases 4, 5, classify, serve, mesh, 7, 8 and lm each drive a path with
+every launch count set to 0 just before and read just after; each kernel of
+a path must have launched on it, and a kernel's ``launches`` are its counts
 summed over those paths. Phase 2 prints the build's nvcc seconds and fails
-if any kernel instantiation spills registers. The last six lines of
+if any kernel instantiation spills registers. The last seven lines of
 standard output are the tuning phase's JSON object, the serve phase's, the
-mesh phase's, the kernels' JSON object, the ``nvidia-smi`` name and power
-limit, and ``{"ok": true, "device": ...}``.
+mesh phase's, the lm phase's, the kernels' JSON object, the ``nvidia-smi``
+name and power limit, and ``{"ok": true, "device": ...}``.
 It imports no JAX: the port is the package ``repro_torch`` under ``src/``.
 """
 
@@ -165,6 +197,7 @@ PATH_KERNELS = {
              "euclid_sq"),
     "mesh": ("paa_isax", "lower_bound_sq_batch", "lower_bound_sq",
              "euclid_sq"),
+    "lm": ("paa_isax", "lower_bound_sq_batch", "euclid_sq"),
 }
 # Each kernel's name in the launch-shape registry (euclid_min keeps a fixed
 # shape: 256 threads, 4 rows a warp, at most 2048 blocks).
@@ -194,6 +227,7 @@ def expect(cond, what: str) -> None:
 
 
 def log(msg: str) -> None:
+    """Print one progress line and flush it."""
     print(msg, flush=True)
 
 
@@ -214,6 +248,8 @@ def time_ms(fn, iters: int) -> float:
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple:
+    """(the least time in ms for these bytes and fp32 operations, which of
+    the two binds)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / FP32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -272,6 +308,7 @@ def walk_chunks(num: int, n: int, gen, device):
 
 
 def random_walks(num: int, n: int, gen, device) -> "torch.Tensor":
+    """``num`` random walks of length ``n``, made on ``device``."""
     import torch
 
     out = torch.empty((num, n), dtype=torch.float32, device=device)
@@ -312,6 +349,7 @@ def check_against_oracle(raw, qz, d, p, od, what: str) -> None:
 
 
 def phase_device() -> tuple:
+    """The card's name, count and ``nvidia-smi`` name and power limit."""
     import torch
 
     name = torch.cuda.get_device_name(0)
@@ -470,6 +508,7 @@ def report_lb_code(tag: str, build_log: str, so_path) -> dict:
 
 
 def phase_build() -> None:
+    """Build every kernel source with ``nvcc``; fail on register spills."""
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
@@ -490,6 +529,8 @@ def phase_build() -> None:
 
 
 def phase_quickstart(dev) -> None:
+    """A small index built by the kernels and by the plain versions, and
+    its exact and tiered answers, held to each other."""
     import numpy as np
     import torch
 
@@ -523,6 +564,9 @@ def phase_quickstart(dev) -> None:
 
 
 def phase_full(args, dev) -> dict:
+    """The main path at full size: build the index, answer the queries
+    exact and tiered, hold them to the oracle; returns what later phases
+    reuse."""
     import numpy as np
     import torch
 
@@ -592,6 +636,8 @@ def phase_full(args, dev) -> dict:
 
 
 def phase_baselines(full: dict) -> dict:
+    """The single-query baselines on phase 4's index, every 1-NN held to
+    the oracle; returns the path's launch counts."""
     import torch
 
     from repro_torch.core import SearchConfig
@@ -731,6 +777,8 @@ def classify_kernel_checks(index, query, rs: int) -> None:
 
 
 def phase_kernels(full: dict) -> list:
+    """Each kernel against its plain version at the full phase's shapes,
+    timed beside its bound and the plain version; the kernels line's rows."""
     import torch
 
     from repro_torch.core import isax
@@ -972,6 +1020,7 @@ def finite(x):
 
 
 def router_figures(s: dict) -> dict:
+    """The router ``stats()`` keys the serve line reports."""
     keys = ("batches", "batch_size_avg", "latency_ms_avg", "latency_ms_max",
             "merges", "merge_ms_avg", "merge_ms_max", "qps", "retries",
             "hedges", "hedges_won", "hedges_denied", "deadline_expired",
@@ -1421,6 +1470,7 @@ def run_mesh(world: int, backend: str, args: tuple) -> tuple:
 
 
 def mesh_same_on_every_rank(ranks, what: str) -> None:
+    """Every rank returned the same answer for every search step."""
     import numpy as np
 
     for name, got in ranks[0].items():
@@ -1674,6 +1724,8 @@ def component_sizes(n_series: int) -> list:
 
 
 def phase_packed(full: dict) -> tuple:
+    """The packed store's search paths, held to phase 4's index; returns
+    (the path's launch counts, the packed kernel's row)."""
     import numpy as np
     import torch
 
@@ -1821,6 +1873,7 @@ def written() -> dict:
 
 
 def io_delta(before: dict) -> str:
+    """Bytes this process wrote since ``before = written()``."""
     now = written()
     return (f"{now['wchar'] - before['wchar']} bytes (wchar; write_bytes "
             f"{now['write_bytes'] - before['write_bytes']})")
@@ -2143,7 +2196,437 @@ def _disk_steps(full, root, n_series, same_n, dev, n, k, rs) -> dict:
     return counts
 
 
+LM_ARCH = "granite-34b"
+LM_LAYERS = 8  # of granite-34b's 88: one card holds 4.84 B bf16 parameters
+LM_CORPUS = (256, 4096)  # bigram sequences x positions: 2^20 pairs, n = 256
+LM_CHUNK = 4  # corpus sequences an apply
+LM_SHARDS = 2  # base shards of the kNN-LM router
+LM_BATCH, LM_STEPS, LM_PROMPT = 16, 64, 16  # sequences, decode steps, prompt
+LM_K, LM_LAM, LM_ROUND = 8, 0.3, 512  # the example's k, lam and round size
+LM_SLOTS, LM_MAX_LEN, LM_REQUESTS, LM_MAX_NEW = 8, 256, 32, 32
+LM_TOL = 1e-3  # (d): logits within 1e-3 of the largest absolute logit
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores, NVIDIA data sheet
+
+
+def lm_close(got, want, what: str) -> float:
+    """Logits within ``LM_TOL`` of the largest absolute one; the max error
+    over that scale."""
+    got, want = got.float().cpu(), want.float().cpu()
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    expect(bool(got.isfinite().all()) and err <= LM_TOL * scale,
+           f"lm (d) {what}: max abs error {err:.3g} > {LM_TOL} x {scale:.3g}")
+    return err / scale
+
+
+def phase_lm(args, dev) -> tuple:
+    """The LM serving path at granite-34b's full width, 8 layers, bf16:
+    (a) the kNN-LM datastore, (b) kNN-LM serving over an IngestingRouter,
+    every retrieval held to an on-card oracle, (c) the SlotBatcher; then
+    (d) the float32 checks and (e) the path's kernels against their plain
+    versions. Returns (the path's launch counts, the ``{"lm": ...}``
+    figures)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core import build_index, isax
+    from repro_torch.examples import retrieval_serve as rs
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model
+    from repro_torch.serving import IngestingRouter
+    from repro_torch.serving.batcher import Request, SlotBatcher
+    from repro_torch.training import data as data_mod
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(configs.get_config(LM_ARCH),
+                              num_layers=LM_LAYERS)
+    (model, t_init) = timed(lambda: Model(
+        cfg, device=dev, generator=torch.Generator(dev).manual_seed(
+            args.seed)))
+    n_params = sum(p.numel() for p in model.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"[lm] {LM_ARCH} at full width, {LM_LAYERS} of "
+        f"{configs.get_config(LM_ARCH).num_layers} layers, {cfg.dtype}: "
+        f"{n_params / 1e9:.3f} B parameters, {w_bytes / 2**30:.2f} GiB, "
+        f"made on the card in {t_init:.2f} s")
+    fig = dict(arch=LM_ARCH, layers=LM_LAYERS, params=n_params,
+               param_gib=w_bytes / 2**30, dtype=cfg.dtype)
+
+    ops.reset_launch_counts()  # the LM path starts here
+    # (a) The datastore: the corpus through Model.apply, its first 256
+    # logits a position kept, then build_index over the 2^20 series.
+    rows, seq = LM_CORPUS
+    corpus = data_mod.bigram_batch(0, rows, seq, cfg.vocab_size,
+                                   seed=args.seed)
+    (vecs, values), t_ds = timed(lambda: rs.datastore(
+        model, corpus["tokens"], corpus["labels"], chunk=LM_CHUNK))
+    n_tok = rows * seq
+    ds_bound = 2 * n_params * n_tok / BF16_OPS_PER_S
+    expect(torch.isfinite(vecs).all(), "lm (a): non-finite datastore logits")
+    index, t_build = timed(lambda: build_index(vecs, segments=16,
+                                               device=dev))
+    log(f"[lm] (a) datastore: {rows} x {seq} tokens through Model.apply in "
+        f"chunks of {LM_CHUNK} (flash attention above "
+        f"{cfg.attn_dense_threshold}): {t_ds:.3f} s, {n_tok / t_ds:.0f} "
+        f"tokens/s; FLOP bound 2 x {n_params:.4g} x {n_tok} = "
+        f"{2 * n_params * n_tok:.4g} at 989 TFLOP/s dense bf16 (H100 SXM "
+        f"data sheet): {ds_bound:.3f} s; build_index over {index.num_series} "
+        f"series: {t_build:.3f} s")
+    fig["datastore"] = dict(tokens=n_tok, s=t_ds, tokens_per_s=n_tok / t_ds,
+                            flop_bound_s=ds_bound, build_index_s=t_build)
+
+    # (b) kNN-LM serving, every retrieval held to an on-card oracle over
+    # the datastore as it stands at that step.
+    store = torch.empty((index.num_series + LM_BATCH * LM_STEPS,
+                         index.series_length), device=dev)
+    store[:index.num_series] = index.raw  # z-normed, file order
+    live = [index.num_series]
+    checked = dict(max_rel=0.0)
+    kept = {}  # one step's states and delta, for (e)
+
+    svc = IngestingRouter(
+        index, LM_SHARDS, k=LM_K, max_batch=LM_BATCH, max_wait_ms=50.0,
+        round_size=LM_ROUND, max_pending=4 * LM_BATCH, policy="shed-oldest",
+        compaction_policy=None)
+
+    def observe(step, states, dists, pos):
+        n = live[0]
+        qz = isax.znorm(states)
+        od, op = oracle_knn(store[:n], qz, LM_K, chunk=1 << 16)
+        expect(np.array_equal(pos, op.cpu().numpy()),
+               f"lm (b) step {step}: positions differ from the oracle's")
+        od = od.cpu().numpy()
+        rel = np.abs(dists - od) / np.maximum(od, 1e-30)
+        expect(np.all(rel <= 1e-4), f"lm (b) step {step}: distances "
+               f"{rel.max():.3g} from the oracle's (relative)")
+        checked["max_rel"] = max(checked["max_rel"], float(rel.max()))
+        store[n:n + states.shape[0]] = qz
+        live[0] = n + states.shape[0]
+        snap = svc.mutable.snapshot()
+        if "delta" not in kept and snap.deltas:
+            kept.update(states=states.clone(), delta=snap.deltas[0].index)
+
+    times = {}
+    prompts = torch.from_numpy(
+        corpus["tokens"][:LM_BATCH, :LM_PROMPT].astype(np.int64)).to(dev)
+    try:
+        (outs, values, compactions), t_gen = timed(lambda: rs.generate(
+            model, svc, values, prompts, steps=LM_STEPS, lam=LM_LAM,
+            observe=observe, times=times))
+        s = svc.stats()
+        base = svc.mutable.snapshot().base
+    finally:
+        svc.stop()
+    expect(outs.shape == (LM_BATCH, LM_PROMPT + LM_STEPS)
+           and np.all((outs >= 0) & (outs < cfg.vocab_size)),
+           "lm (b): generated tokens out of range")
+    expect(live[0] == svc.num_series == index.num_series + LM_BATCH
+           * LM_STEPS, "lm (b): the datastore did not grow by every step")
+
+    def ms(name):
+        v = times.get(name, [])
+        return 1e3 * sum(v) / max(len(v), 1)
+
+    router = {key: s[key] for key in (
+        "answered", "batches", "batch_size_avg", "latency_ms_avg",
+        "latency_ms_max", "merge_ms_avg", "queue_depth_peak", "shed",
+        "retired_shards", "num_shards")}
+    fig["serve"] = dict(
+        sequences=LM_BATCH, steps=LM_STEPS, k=LM_K, round_size=LM_ROUND,
+        wall_s=t_gen, prefill_ms=ms("prefill"), decode_ms=ms("decode"),
+        decode_bound_ms=w_bytes / HBM_BYTES_PER_S * 1e3,
+        retrieve_ms=ms("retrieve"), mix_ms=ms("mix"), append_ms=ms("append"),
+        compaction_ms=ms("compact"), compactions=compactions,
+        oracle_max_rel=checked["max_rel"], router=router)
+    f = fig["serve"]
+    log(f"[lm] (b) kNN-LM: {LM_BATCH} sequences x {LM_STEPS} steps, k "
+        f"{LM_K}, lam {LM_LAM}, round {LM_ROUND}, {LM_SHARDS} base shards: "
+        f"{t_gen:.3f} s; prefill ({LM_BATCH} x {LM_PROMPT}) "
+        f"{f['prefill_ms']:.3f} ms; decode {f['decode_ms']:.3f} ms a step "
+        f"(byte bound {w_bytes / 2**30:.2f} GiB of weights at 3.35 TB/s, "
+        f"H100 SXM data sheet: {f['decode_bound_ms']:.3f} ms); retrieval "
+        f"{f['retrieve_ms']:.3f} ms a step; mix {f['mix_ms']:.3f} ms; append "
+        f"{f['append_ms']:.3f} ms; {compactions} compactions of "
+        f"{f['compaction_ms']:.3f} ms; every step's positions equal the "
+        f"on-card oracle's, distances within {checked['max_rel']:.3g} "
+        f"relative; router {router}")
+
+    # (c) The launch path's continuous batcher.
+    rng = np.random.default_rng(args.seed)
+    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(4, 13)))
+               .astype(np.int32) for _ in range(LM_REQUESTS)]
+    batcher = SlotBatcher(model, LM_SLOTS, LM_MAX_LEN)
+    for rid, p in enumerate(prompts):
+        batcher.submit(Request(rid=rid, prompt=p, max_new=LM_MAX_NEW))
+    done, t_b = timed(lambda: batcher.run(LM_REQUESTS * (LM_MAX_NEW + 4)))
+    expect(sorted(done) == list(range(LM_REQUESTS)),
+           f"lm (c): {len(done)} of {LM_REQUESTS} requests finished")
+    expect(all(np.array_equal(done[r][:len(p)], p)
+               and len(done[r]) == len(p) + LM_MAX_NEW
+               for r, p in enumerate(prompts)),
+           "lm (c): an answer is not its prompt and max_new tokens")
+    gen_tok = LM_REQUESTS * LM_MAX_NEW
+    fig["batcher"] = dict(slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                          requests=LM_REQUESTS, max_new=LM_MAX_NEW, s=t_b,
+                          tokens_per_s=gen_tok / t_b)
+    log(f"[lm] (c) SlotBatcher: {LM_REQUESTS} requests (prompts 4-12, "
+        f"max_new {LM_MAX_NEW}) on {LM_SLOTS} slots: {t_b:.3f} s, "
+        f"{gen_tok / t_b:.1f} generated tokens/s")
+    counts = path_counts("lm")  # the LM path ends here
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    fig["launches"] = counts
+    if args.profile_lm:
+        fig["profile"] = lm_profile(model, corpus, index, kept["states"])
+    del batcher, done, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) The path's kernels against their plain versions at its shapes.
+    lm_kernel_checks(vecs, base, kept, LM_K, LM_ROUND)
+    del vecs, index, base, kept, store
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) Float32 checks (TF32 is off for the whole script).
+    fig["checks"] = lm_f32_checks(cfg, dev, args.seed)
+    peak = max(peak, torch.cuda.max_memory_allocated() / 2**30)
+    log(f"[lm] peak device memory {peak:.2f} GiB (limit {MAX_PEAK_GIB:.0f})")
+    expect(peak < MAX_PEAK_GIB, f"lm peak memory {peak:.2f} GiB")
+    fig["peak_gib"] = peak
+    return counts, fig
+
+
+def profile_window(name: str, fn, top: int = 8) -> dict:
+    """Trace ``fn()`` once by ``torch.profiler``, after a warm-up call: the
+    wall time, the summed time of the card's kernels (one stream, so the
+    busy time), the idle share 1 - busy / wall and the top kernels."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = collections.Counter()
+    n = 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] += e.time_range.elapsed_us()
+            n += 1
+    busy = sum(by_name.values()) / 1e6
+    expect(n > 0, f"lm profile {name}: the trace holds no kernel")
+    out = dict(wall_s=wall, busy_s=busy, idle_share=1 - busy / wall,
+               kernels=n, top=[(k[:90], v / 1e6) for k, v in
+                               by_name.most_common(top)])
+    log(f"[lm] profile {name}: wall {wall:.4f} s; {n} kernels, busy "
+        f"{busy:.4f} s; idle share {out['idle_share']:.3f}")
+    for k, v in out["top"]:
+        log(f"[lm] profile {name}:   {v:.4f} s  {k}")
+    return out
+
+
+def lm_profile(model, corpus, index, states) -> dict:
+    """``--profile-lm``: where the lm phase's time goes, on its own model,
+    corpus and datastore. Three windows: one datastore chunk through
+    ``Model.apply``; prefill and 8 decode steps at the phase's batch; one
+    retrieval step (``submit`` and ``drain`` of one step's LM states) over
+    a fresh router on the datastore's base index, as the phase builds it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.examples import retrieval_serve as rs
+    from repro_torch.serving import IngestingRouter
+    from repro_torch.serving.kv_cache import pad_cache_to
+
+    dev = model.device
+    out = {}
+    out["datastore_chunk"] = profile_window(
+        "datastore chunk", lambda: rs.datastore(
+            model, corpus["tokens"][:LM_CHUNK], corpus["labels"][:LM_CHUNK]))
+    prompts = torch.from_numpy(
+        corpus["tokens"][:LM_BATCH, :LM_PROMPT].astype(np.int64)).to(dev)
+
+    def decode8():
+        logits, cache = model.prefill({"tokens": prompts})
+        cache = pad_cache_to(cache, LM_PROMPT + 8)
+        nxt = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        for i in range(8):
+            last, cache = model.decode_step({"tokens": nxt}, cache,
+                                            LM_PROMPT + i)
+            nxt = torch.argmax(last, dim=-1)[:, None]
+
+    out["prefill_and_8_decode_steps"] = profile_window(
+        "prefill + 8 decode steps", decode8)
+    queries = states.float().cpu().numpy()
+    svc = IngestingRouter(
+        index, LM_SHARDS, k=LM_K, max_batch=LM_BATCH, max_wait_ms=50.0,
+        round_size=LM_ROUND, max_pending=4 * LM_BATCH, policy="shed-oldest",
+        compaction_policy=None)
+
+    def retrieve():
+        futs = [svc.submit(q) for q in queries]
+        svc.drain()
+        return [f.result() for f in futs]
+
+    try:
+        out["retrieval_step"] = profile_window("retrieval step", retrieve)
+    finally:
+        svc.stop()
+    return out
+
+
+def lm_kernel_checks(vecs, base, kept: dict, k: int, rs: int) -> None:
+    """``paa_isax`` on the 2^20 datastore rows and on one step's appended
+    rows, ``lower_bound_sq_batch`` on that step's PAA over a base shard's
+    and a delta shard's SAX (bitwise), ``euclid_sq`` on its first-round
+    gather over the base shard (within 1e-5)."""
+    import torch
+
+    from repro_torch.core import build_sharded_index, isax
+    from repro_torch.core.search import _smallest, select_len
+    from repro_torch.kernels import ops
+
+    expect("delta" in kept, "lm (e): no delta shard was seen")
+    shard = build_sharded_index(base, LM_SHARDS).shards[0]
+    delta, states = kept["delta"], kept["states"]
+    w, card, n = shard.segments, shard.cardinality, shard.series_length
+    dev = shard.device
+    bp = isax.gaussian_breakpoints(card, dev)
+    for rows, what in ((vecs, f"{vecs.shape[0]} datastore rows"),
+                       (states, f"{states.shape[0]} appended rows")):
+        x = isax.znorm(rows)
+        got = ops.paa_isax(x, bp, w, normalize=False)
+        plain = ops.paa_isax(x, bp, w, normalize=False, impl="ref")
+        expect(all(torch.equal(g, e) for g, e in zip(got, plain)),
+               f"lm (e): paa_isax on {what} differs from its plain version")
+        del x, got, plain
+    qs = isax.znorm(states)
+    qps = isax.paa(qs, w)
+    bpp = isax.padded_breakpoints(card, dev)
+    for sax, what in ((delta.sax, "a delta shard"), (shard.sax,
+                                                     "a base shard")):
+        lb = ops.lower_bound_sq_batch(qps, sax, bpp, n)
+        expect(torch.equal(lb, ops.lower_bound_sq_batch(
+            qps, sax, bpp, n, impl="ref")), f"lm (e): lower_bound_sq_batch "
+            f"over {what} not bitwise equal to its plain version")
+    order, _ = _smallest(lb, select_len(shard.num_series, rs))
+    pos = shard.pos[order[:, :rs].long()].contiguous()
+    got = ops.euclid_sq_gather(qs, shard.raw, pos)
+    plain = ops.euclid_sq_gather(qs, shard.raw, pos, impl="ref")
+    expect(torch.allclose(got, plain, rtol=1e-5, atol=1e-5),
+           "lm (e): euclid_sq differs from its plain version")
+    log(f"[lm] (e) paa_isax ({vecs.shape[0]} datastore rows, "
+        f"{states.shape[0]} appended rows) and lower_bound_sq_batch "
+        f"({qps.shape[0]} x {w} PAA over a delta shard of {delta.num_series} "
+        f"and a base shard of {shard.num_series} rows) bitwise equal to their "
+        f"plain versions; euclid_sq ({tuple(pos.shape)} first-round gather) "
+        "within 1e-5")
+
+
+def lm_f32_checks(cfg, dev, seed: int) -> dict:
+    """(d): the same generator-made model at depth 2 in float32 on the card
+    and on the host CPU (prefill, 8 greedy steps); decode after prefill
+    against the full forward at depth 8 on the card; each SlotBatcher
+    answer against its own greedy generation."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models import Model
+    from repro_torch.serving.batcher import Request, SlotBatcher
+    from repro_torch.serving.kv_cache import pad_cache_to
+    from repro_torch.serving.serve_step import greedy_generate
+
+    out = {}
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 16)))
+    c2 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    card = Model(c2, device=dev,
+                 generator=torch.Generator(dev).manual_seed(seed))
+    host = Model(c2, device="cpu")  # filled from the card's parameters
+    host.load_state_dict(card.state_dict())
+    t0 = time.perf_counter()
+    errs = []
+    res = []
+    for m in (card, host):
+        t = tokens.to(m.device)
+        logits, cache = m.prefill({"tokens": t})
+        cache = pad_cache_to(cache, 16 + 8)
+        steps = [logits[:, -1]]
+        res.append((m, cache, steps, logits))
+    errs.append(lm_close(res[0][3], res[1][3], "prefill, card vs host"))
+    last = [r[2][0] for r in res]
+    caches = [r[1] for r in res]
+    for i in range(8):
+        nxt = [torch.argmax(x, dim=-1) for x in last]
+        expect(torch.equal(nxt[0].cpu(), nxt[1]), f"lm (d): greedy token "
+               f"{i} differs between the card and the host")
+        for j, m in enumerate((card, host)):
+            last[j], caches[j] = m.decode_step(
+                {"tokens": nxt[j][:, None]}, caches[j], 16 + i)
+        errs.append(lm_close(last[0], last[1], f"decode step {i}, card vs "
+                             "host"))
+    out["card_vs_host_max_rel"] = max(errs)
+    log(f"[lm] (d) depth 2, float32, full width: prefill 2 x 16 and 8 greedy "
+        f"steps on the card equal the host CPU's tokens, logits within "
+        f"{max(errs):.3g} of the largest ({time.perf_counter() - t0:.1f} s)")
+    del host, res, caches, last
+
+    # Each SlotBatcher answer is its own greedy generation (depth 2, f32).
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 9, 12)]
+    b = SlotBatcher(card, 2, 32)
+    for i, p in enumerate(prompts):
+        b.submit(Request(rid=i, prompt=p, max_new=8))
+    done = b.run(64)
+    for i, p in enumerate(prompts):
+        single = greedy_generate(card, torch.from_numpy(
+            p[None].astype(np.int64)).to(dev), max_new=8)[0].cpu().numpy()
+        expect(i in done and np.array_equal(done[i], single),
+               f"lm (d): batcher answer {i} differs from its greedy "
+               "generation")
+    log("[lm] (d) SlotBatcher (2 slots, 3 requests) answers equal their own "
+        "greedy generations")
+    del card, b
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Decode after prefill of s-1 tokens == the full forward's last row.
+    c8 = dataclasses.replace(cfg, dtype="float32")
+    m8 = Model(c8, device=dev,
+               generator=torch.Generator(dev).manual_seed(seed))
+    t = tokens.to(dev)
+    full, _, _ = m8.apply({"tokens": t})
+    _, cache = m8.prefill({"tokens": t[:, :15]})
+    last, _ = m8.decode_step({"tokens": t[:, 15:]}, pad_cache_to(cache, 16),
+                             15)
+    out["decode_vs_forward_max_rel"] = lm_close(
+        last, full[:, -1], f"depth {c8.num_layers} decode vs forward")
+    expect(torch.equal(torch.argmax(last, -1), torch.argmax(full[:, -1], -1)),
+           "lm (d): decode and forward pick different tokens")
+    log(f"[lm] (d) depth {c8.num_layers}, float32: decode after prefill of "
+        f"15 tokens equals the full forward's last position within "
+        f"{out['decode_vs_forward_max_rel']:.3g} of the largest logit")
+    del m8, full, cache, last
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
+    """Run every phase on the card; exit 0 only if all of them passed."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log2-n", type=int, default=24,
@@ -2155,6 +2638,9 @@ def main(argv=None) -> int:
     ap.add_argument("--disk-log2-n", type=int, default=None,
                     help="the disk phase's 2**N series (default: --log2-n, "
                     f"at most {DISK_LOG2_N_MAX})")
+    ap.add_argument("--profile-lm", action="store_true",
+                    help="trace the lm phase's datastore chunk, decode "
+                    "steps and a retrieval step by torch.profiler")
     args = ap.parse_args(argv)
     if args.disk_log2_n is None:
         args.disk_log2_n = min(args.log2_n, DISK_LOG2_N_MAX)
@@ -2197,10 +2683,13 @@ def main(argv=None) -> int:
     packed_counts, multi_row = phase("packed", phase_packed, full)
     rows.append(multi_row)
     disk_counts = phase("disk", phase_disk, full)
+    full_counts = full["counts"]
+    del full  # the LM phase starts from a card holding no index
+    lm_counts, lm_fig = phase("lm", phase_lm, args, dev)
     for row in rows:  # launches: summed over the driven paths
         row["launches"] = sum(c[row["name"]] for c in (
-            full["counts"], base_counts, classify_counts, serve_counts,
-            mesh_counts, packed_counts, disk_counts))
+            full_counts, base_counts, classify_counts, serve_counts,
+            mesh_counts, packed_counts, disk_counts, lm_counts))
         expect(row["launches"] > 0, f"{row['name']} never launched")
     expect(sorted(r["name"] for r in rows) == sorted(KERNEL_ROWS),
            "the kernels line must list every kernel")
@@ -2208,6 +2697,7 @@ def main(argv=None) -> int:
     print(json.dumps({"tuning": tuning_rows}))
     print(json.dumps({"serve": serve_fig}))
     print(json.dumps({"mesh": mesh_fig}))
+    print(json.dumps({"lm": lm_fig}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

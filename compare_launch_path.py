@@ -104,6 +104,8 @@ def worker(tree: str, seed: int, log2_n: int, n_q: int) -> dict:
 
 
 def main(argv=None) -> int:
+    """Run the two trees in turns (baseline, this, this, baseline); print
+    every turn's numbers."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline", help="root of the other checkout")
     ap.add_argument("--seed", type=int, default=0)

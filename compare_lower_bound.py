@@ -279,6 +279,8 @@ def compare(args, dev, base, per_pair) -> dict:
 
 
 def main(argv=None) -> int:
+    """Build the baseline source, time both sides' entries on the same
+    inputs, and print the comparison."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--baseline", required=True, type=pathlib.Path)
     ap.add_argument("--seed", type=int, default=0)

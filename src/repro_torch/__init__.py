@@ -7,9 +7,11 @@ written for the H100. It imports no JAX. Entry points run on the card
 """
 
 from repro_torch.convert import (
+    cache_from_arrays,
     dist_index_from_arrays,
     index_from_arrays,
     index_to_arrays,
+    model_from_arrays,
     packed_from_arrays,
     packed_to_arrays,
 )
@@ -59,6 +61,7 @@ from repro_torch.serving import (
 )
 
 __all__ = [
+    "cache_from_arrays", "model_from_arrays",
     "dist_index_from_arrays", "index_from_arrays", "index_to_arrays",
     "packed_from_arrays", "packed_to_arrays",
     "PackedComponents", "ParISIndex", "SearchConfig", "SearchResult", "Tier",

@@ -13,6 +13,8 @@ import dataclasses
 
 @dataclasses.dataclass(frozen=True)
 class ParisConfig:
+    """One ParIS+ deployment: data scale, series shape and index knobs."""
+
     name: str = "paris"
     family: str = "index"
     num_series: int = 100_000_000  # 100M series (paper's 100GB dataset)
@@ -28,5 +30,6 @@ CONFIG = ParisConfig()
 
 
 def smoke_config() -> ParisConfig:
+    """The same index at test size: 4096 series of length 64."""
     return ParisConfig(name="paris-smoke", num_series=4096, series_length=64,
                        segments=8, round_size=256, leaf_cap=32)

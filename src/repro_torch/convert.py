@@ -13,6 +13,15 @@ one identical index or packed buffer. The k-NN classifier
 (:class:`~repro_torch.core.classifier.KnnClassifier`) needs nothing more:
 it takes the index ``index_from_arrays`` builds and its labels as they
 are, so it has no converter of its own.
+
+``model_from_arrays`` takes a JAX model's parameter tree (``Model.
+init_params``, as numpy: ``jax.tree.map(np.asarray, params)``) and returns
+the port's :class:`~repro_torch.models.Model` holding the same values:
+the ``blocks`` stack (axis 0) and the ``periods`` stacks (period, then
+layer within it) are taken apart into the module lists, the ``prefix``
+list is taken entry by entry, and each leaf is cast as the model casts it.
+``cache_from_arrays`` carries a cache tree (the layouts are the same) to
+the port's device, so a JAX cache can feed the port's ``decode_step``.
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ from repro_torch.core.device import resolve_device
 from repro_torch.core.distributed import DistIndex
 from repro_torch.core.index import ParISIndex
 from repro_torch.core.search import PackedComponents
+from repro_torch.models import Model
 
 
 def index_from_arrays(sax, pos, bucket_offsets, raw, series_length: int,
@@ -142,3 +152,56 @@ def dist_index_from_arrays(sax, raw_sorted, pos, series_length: int,
             or dindex.raw_sorted.shape != (n, dindex.series_length)):
         raise ValueError("pos/raw_sorted do not match the sax rows")
     return dindex
+
+
+def _leaf(tree, name: str) -> np.ndarray:
+    """The JAX tree's array for the port parameter ``name``: a numeric
+    component indexes a list where the tree holds one (``prefix``), else
+    it is a stacking axis of the leaf, applied in order."""
+    node, stack = tree, []
+    for part in name.split("."):
+        if not part.isdigit():
+            node = node[part]
+        elif isinstance(node, (list, tuple)):
+            node = node[int(part)]
+        else:
+            stack.append(int(part))
+    return np.asarray(node)[tuple(stack)]
+
+
+def _tree_size(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_size(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tree_size(v) for v in tree)
+    return int(np.asarray(tree).size)
+
+
+def model_from_arrays(cfg, tree, device="cuda") -> Model:
+    """A JAX parameter tree of numpy arrays -> the port's ``Model``."""
+    model = Model(cfg, device=device)
+    for name, param in model.named_parameters():
+        arr = _leaf(tree, name)
+        if tuple(arr.shape) != tuple(param.shape):
+            raise ValueError(f"{name}: tree shape {arr.shape} != "
+                             f"{tuple(param.shape)}")
+        param.data = torch.from_numpy(np.array(arr, np.float32)).to(
+            device=param.device, dtype=param.dtype)
+    n_port = sum(p.numel() for p in model.parameters())
+    if n_port != _tree_size(tree):
+        raise ValueError(f"the tree holds {_tree_size(tree)} values, the "
+                         f"model {n_port}")
+    return model
+
+
+def cache_from_arrays(tree, device="cuda"):
+    """A cache tree of numpy arrays (JAX's layout) -> tensors on
+    ``device``, bfloat16 leaves included."""
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: cache_from_arrays(v, dev) for k, v in tree.items()}
+    arr = np.asarray(tree)
+    if arr.dtype.name == "bfloat16":  # ml_dtypes' bfloat16
+        return torch.from_numpy(arr.astype(np.float32)).to(
+            device=dev, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(arr)).to(dev)

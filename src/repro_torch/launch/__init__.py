@@ -1,2 +1,3 @@
-"""Entry-point helpers of the port (the JAX package's ``launch``): so far
-the lattice search of the kernel autotuner."""
+"""Entry points of the port (the JAX package's ``launch``): the lattice
+search of the kernel autotuner (``hillclimb``) and the decode-serving
+launcher (``python -m repro_torch.launch.serve``)."""

@@ -1,0 +1,433 @@
+"""Shared neural-net layers of the port's architecture zoo.
+
+The port of ``repro/models/layers.py``. Each layer is an ``nn.Module`` that
+owns its parameters under the JAX package's dict keys (``wq``, ``scale``,
+``table`` ...), so ``convert.model_from_arrays`` maps a JAX parameter tree
+onto it name for name, and a function ``f(p, x, ...)`` over that module,
+written as the JAX function is: the same casts, the same masks, the same
+online softmax. ``logical``/``set_logical_rules`` (sharding annotations)
+have no counterpart on one card.
+
+Attention supports: causal / bidirectional, GQA/MQA (kv heads broadcast),
+sliding-window masks (Gemma-3 local layers), RoPE and M-RoPE (Qwen2-VL),
+dense or flash-style chunked evaluation (long prefill), and KV-cache decode
+with a scalar or a per-row write position. It is written with
+``torch.einsum`` as the JAX package writes it, not with
+``F.scaled_dot_product_attention``, whose masking and rounding differ.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+NEG = -1e30  # additive mask bias: a fully masked row softmaxes to uniform
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+class Init:
+    """Where a module's parameters come from: normal draws from
+    ``generator`` on ``device`` (float32), or, with no generator, empty
+    tensors for a loader to fill (``convert.model_from_arrays``)."""
+
+    def __init__(self, device: torch.device,
+                 generator: Optional[torch.Generator]):
+        self.device = device
+        self.generator = generator
+
+    def normal(self, shape, std: float) -> nn.Parameter:
+        """A normal draw times ``std`` (empty when loading)."""
+        if self.generator is None:
+            return self.empty(shape)
+        x = torch.randn(shape, generator=self.generator, device=self.device)
+        return _param(x.mul_(std))
+
+    def dense(self, shape, scale: Optional[float] = None) -> nn.Parameter:
+        """``_dense_init``: normal times fan_in ** -0.5 (or ``scale``)."""
+        fan_in = shape[-2] if len(shape) > 1 else shape[-1]
+        return self.normal(shape, scale if scale is not None
+                           else fan_in ** -0.5)
+
+    def full(self, shape, value: float) -> nn.Parameter:
+        """A float32 tensor filled with ``value``."""
+        return _param(torch.full(shape, value, dtype=torch.float32,
+                                 device=self.device))
+
+    def empty(self, shape) -> nn.Parameter:
+        """An uninitialised float32 tensor for a loader to fill."""
+        return _param(torch.empty(shape, dtype=torch.float32,
+                                  device=self.device))
+
+
+def _param(x: torch.Tensor) -> nn.Parameter:
+    # Serving computes no gradient; the training slice turns them on.
+    return nn.Parameter(x, requires_grad=False)
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with JAX's promotion of mixed float dtypes."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Activations, op by op as ``jax.nn`` writes them. XLA rounds every
+# elementwise op to bfloat16 in turn, while a fused torch activation
+# (``F.silu``, ``F.gelu``) rounds once: in bfloat16 the two disagree in
+# about a third of the elements. Each torch op here rounds as XLA's does.
+# ---------------------------------------------------------------------------
+
+def _const(value: float, x: torch.Tensor) -> torch.Tensor:
+    """A Python constant as JAX makes it: rounded to ``x``'s dtype."""
+    return torch.tensor(value, dtype=x.dtype, device=x.device)
+
+
+def silu(x):
+    """``jax.nn.silu``: x * logistic(x), logistic = 1 / (1 + exp(-x))."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def gelu_tanh(x):
+    """``jax.nn.gelu(approximate=True)``; x ** 3 as XLA's integer power."""
+    inner = _const(math.sqrt(2 / math.pi), x) * (
+        x + _const(0.044715, x) * (x * (x * x)))
+    return x * (_const(0.5, x) * (1 + torch.tanh(inner)))
+
+
+def softplus(x):
+    """``jax.nn.softplus`` = logaddexp(x, 0) = max(x, 0) + log1p(exp(-|x|))."""
+    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm / MLP
+# ---------------------------------------------------------------------------
+
+class RMSNorm(nn.Module):
+    """RMSNorm's parameters: ``scale`` (d,), ones at init."""
+
+    def __init__(self, init: Init, d: int):
+        super().__init__()
+        self.scale = init.full((d,), 1.0)
+
+
+def rmsnorm(p, x, eps=1e-5):
+    """x / rms(x) * scale, computed in float32 and cast back."""
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * p.scale).to(dt)
+
+
+class MLP(nn.Module):
+    """A feed-forward block's weights: gated (``wi_gate``, ``wi_up``) for
+    swiglu/geglu, one ``wi`` for gelu/relu2, then ``wo``."""
+
+    def __init__(self, init: Init, d_model: int, d_ff: int,
+                 mlp_type: str = "swiglu"):
+        super().__init__()
+        if mlp_type in ("swiglu", "geglu"):
+            self.wi_gate = init.dense((d_model, d_ff))
+            self.wi_up = init.dense((d_model, d_ff))
+        else:  # gelu / relu-squared
+            self.wi = init.dense((d_model, d_ff))
+        self.wo = init.dense((d_ff, d_model))
+
+
+def mlp(p, x, mlp_type="swiglu"):
+    """The feed-forward block of ``mlp_type`` (GELU is the tanh form)."""
+    if mlp_type in ("swiglu", "geglu"):
+        act = silu if mlp_type == "swiglu" else gelu_tanh
+        h = act(x @ p.wi_gate) * (x @ p.wi_up)
+        return h @ p.wo
+    if mlp_type == "relu2":
+        h = torch.square(F.relu(x @ p.wi))
+    else:
+        h = gelu_tanh(x @ p.wi)
+    return h @ p.wo
+
+
+# ---------------------------------------------------------------------------
+# RoPE / M-RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    """The (head_dim/2,) float32 rotary frequencies theta**(-2i/hd)."""
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4,
+               mrope_sections: Optional[tuple] = None) -> torch.Tensor:
+    """x: (B, S, H, hd); positions: (B, S) or (B, S, 3) for M-RoPE.
+
+    M-RoPE (Qwen2-VL): the rotary dimension is split into sections, each
+    rotated by its own position stream (temporal / height / width). The
+    rotation runs in float32 and is cast back to ``x``'s dtype.
+    """
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)  # (hd/2,)
+    if positions.dim() == 3:  # M-RoPE
+        if mrope_sections is None:
+            mrope_sections = (hd // 2 - 2 * (hd // 6), hd // 6, hd // 6)
+        sec = []
+        start = 0
+        for i, s in enumerate(mrope_sections):
+            sec.append(positions[..., i: i + 1] * freqs[None, None,
+                                                        start: start + s])
+            start += s
+        angles = torch.cat(sec, dim=-1)  # (B, S, hd/2)
+    else:
+        angles = positions[..., None].float() * freqs
+    cos = torch.cos(angles)[:, :, None, :]  # (B, S, 1, hd/2)
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA, masks, flash-style chunking, KV-cache decode)
+# ---------------------------------------------------------------------------
+
+class Attention(nn.Module):
+    """GQA projections: ``wq`` (d, H*hd), ``wk``/``wv`` (d, K*hd),
+    ``wo`` (H*hd, d)."""
+
+    def __init__(self, init: Init, d_model: int, num_heads: int,
+                 num_kv_heads: int, head_dim: int):
+        super().__init__()
+        self.wq = init.dense((d_model, num_heads * head_dim))
+        self.wk = init.dense((d_model, num_kv_heads * head_dim))
+        self.wv = init.dense((d_model, num_kv_heads * head_dim))
+        self.wo = init.dense((num_heads * head_dim, d_model),
+                             scale=(num_heads * head_dim) ** -0.5)
+
+
+def _bias(ok: torch.Tensor) -> torch.Tensor:
+    return torch.zeros(ok.shape, dtype=torch.float32,
+                       device=ok.device).masked_fill_(~ok, NEG)
+
+
+def _mask_bias(q_pos, k_pos, causal: bool, window: int) -> torch.Tensor:
+    """(Sq, Sk) additive mask bias from position vectors; window <= 0
+    means full attention."""
+    diff = q_pos[:, None] - k_pos[None, :]
+    ok = torch.ones(diff.shape, dtype=torch.bool, device=diff.device)
+    if causal:
+        ok &= diff >= 0
+    if window > 0:
+        ok &= diff < window
+    return _bias(ok)
+
+
+def _sdpa_dense(q, k, v, bias):
+    """q (B,Sq,H,hd), k/v (B,Sk,K,hd) with H = K*G; bias (Sq,Sk) or
+    (B,Sq,Sk) (per-row masks for continuous batching). Scores are rounded
+    to the compute dtype before the float32 softmax, and the weights cast
+    back to ``v``'s dtype, as the JAX package does."""
+    b, sq, h, hd = q.shape
+    kheads = k.shape[2]
+    g = h // kheads
+    q = q.reshape(b, sq, kheads, g, hd)
+    scores = torch.einsum("bqkgh,bskh->bkgqs", q, k).float()
+    bias = bias[:, None, None] if bias.dim() == 3 else bias[None, None, None]
+    scores = scores * (hd ** -0.5) + bias
+    p = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgqs,bskh->bqkgh", p, v)
+    return out.reshape(b, sq, h, hd)
+
+
+def _pad_seq(x, n: int, value=0):
+    """Pad axis 1 of ``x`` by ``n`` entries of ``value``."""
+    if n == 0:
+        return x
+    shape = (x.shape[0], n) + tuple(x.shape[2:])
+    return torch.cat([x, torch.full(shape, value, dtype=x.dtype,
+                                    device=x.device)], dim=1)
+
+
+def _sdpa_flash(q, k, v, q_pos, k_pos, causal, window, q_block, k_block,
+                skip_masked: bool = True):
+    """Online-softmax chunked attention: memory O(q_block * k_block).
+
+    The running max starts at 0, not -inf: a fully masked kv block then
+    contributes exp(-1e30) = 0 instead of exp(0) = 1, and the online
+    softmax is exact for any monotone baseline m >= 0. Rows past ``sq`` /
+    ``sk`` are padded with positions -10**9 and 2**30.
+
+    A kv block that every query of the block masks leaves m, lsum and acc
+    exactly as they were (p = 0, corr = exp(0) = 1), so it is skipped: the
+    causal blocks above the diagonal and, for a local window, the blocks
+    wholly out of reach. The output is the same, bit for bit (held by
+    ``skip_masked=False``, which visits every block).
+    """
+    b, sq, h, hd = q.shape
+    sk = k.shape[1]
+    kheads = k.shape[2]
+    g = h // kheads
+    nq = -(-sq // q_block)
+    nk = -(-sk // k_block)
+    qp = _pad_seq(q, nq * q_block - sq).reshape(b, nq, q_block, kheads, g,
+                                                 hd)
+    kp = _pad_seq(k, nk * k_block - sk).reshape(b, nk, k_block, kheads, hd)
+    vp = _pad_seq(v, nk * k_block - sk).reshape(b, nk, k_block, kheads, hd)
+    qpos = _pad_seq(q_pos[None], nq * q_block - sq, -(10 ** 9))[0]
+    kpos = _pad_seq(k_pos[None], nk * k_block - sk, 2 ** 30)[0]
+    scale = hd ** -0.5
+    # Block position ranges on the host (one copy a call) for the skip test.
+    q_rng = qpos.reshape(nq, q_block)
+    k_rng = kpos.reshape(nk, k_block)
+    q_rng = torch.stack([q_rng.amin(1), q_rng.amax(1)], 1).tolist()
+    k_rng = torch.stack([k_rng.amin(1), k_rng.amax(1)], 1).tolist()
+    outs = []
+    for i in range(nq):
+        qb = qp[:, i]  # (B, q_block, K, G, hd)
+        qpb = qpos[i * q_block:(i + 1) * q_block]
+        m = torch.zeros((b, kheads, g, q_block), dtype=torch.float32,
+                        device=q.device)
+        lsum = torch.zeros_like(m)
+        acc = torch.zeros((b, kheads, g, q_block, hd), dtype=torch.float32,
+                          device=q.device)
+        for j in range(nk):
+            if skip_masked and (
+                    (causal and q_rng[i][1] < k_rng[j][0]) or
+                    (window > 0 and q_rng[i][0] - k_rng[j][1] >= window)):
+                continue  # every (query, key) pair of the block is masked
+            kb, vb = kp[:, j], vp[:, j]
+            kpb = kpos[j * k_block:(j + 1) * k_block]
+            s = torch.einsum("bqkgh,bskh->bkgqs", qb, kb).float()
+            s.mul_(scale).add_(_mask_bias(qpb, kpb, causal, window))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = s.sub_(m_new[..., None]).exp_()
+            corr = torch.exp(m - m_new)
+            lsum = lsum * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgqs,bskh->bkgqh", p.to(vb.dtype), vb).float()
+            m = m_new
+        out = acc / torch.clamp(lsum[..., None], min=1e-30)
+        outs.append(out.permute(0, 3, 1, 2, 4))  # (B, q_block, K, G, hd)
+    out = torch.stack(outs, dim=1).reshape(b, nq * q_block, h, hd)
+    return out[:, :sq].to(q.dtype)
+
+
+def _write_cache(cache, new, start):
+    """``dynamic_update_slice`` of ``new`` (B, Sq, ...) into ``cache``
+    (B, S, ...) at per-row ``start`` (B,), each start clamped so that the
+    update fits, as XLA clamps. Returns a new tensor."""
+    b, sq = new.shape[:2]
+    start = torch.clamp(start, 0, cache.shape[1] - sq)
+    idx = start[:, None] + torch.arange(sq, device=cache.device)
+    out = cache.clone()
+    out[torch.arange(b, device=cache.device)[:, None], idx] = new.to(
+        cache.dtype)
+    return out
+
+
+def attention(
+    p,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    *,
+    num_heads: int,
+    num_kv_heads: int,
+    head_dim: int,
+    causal: bool = True,
+    window: int = 0,
+    rope_theta: float = 1e4,
+    mrope_sections: Optional[tuple] = None,
+    kv_cache: Optional[tuple] = None,
+    cache_position=None,
+    flash_q_block: int = 512,
+    flash_kv_block: int = 512,
+    dense_threshold: int = 2048,
+):
+    """Full attention layer. Returns (out, new_kv) where new_kv is the
+    (k, v) pair — the full sequence for prefill, or the updated cache for
+    decode (``kv_cache`` + ``cache_position`` given).
+
+    ``cache_position`` is a scalar write index (an int, or a 0-d tensor),
+    or a (B,) tensor of per-row indices (the continuous-batching path:
+    each slot decodes at its own offset). The scalar path masks with row
+    0's positions for every row, as the JAX package does.
+    """
+    b, sq, _ = x.shape
+    q = (x @ p.wq).reshape(b, sq, num_heads, head_dim)
+    k = (x @ p.wk).reshape(b, sq, num_kv_heads, head_dim)
+    v = (x @ p.wv).reshape(b, sq, num_kv_heads, head_dim)
+    pos2d = positions if positions.dim() == 2 else positions[..., 0]
+    if rope_theta > 0:
+        q = apply_rope(q, positions, rope_theta, mrope_sections)
+        k = apply_rope(k, positions, rope_theta, mrope_sections)
+
+    if kv_cache is not None:
+        cp = torch.as_tensor(cache_position, device=x.device)
+        starts = cp.expand(b) if cp.dim() == 0 else cp
+        ck = _write_cache(kv_cache[0], k, starts)
+        cv = _write_cache(kv_cache[1], v, starts)
+        sk = ck.shape[1]
+        k_pos = torch.arange(sk, device=x.device)
+        if cp.dim() == 0:
+            bias = _mask_bias(pos2d[0], k_pos, causal, window)  # (Sq, Sk)
+            written = k_pos[None, :] <= cp + sq - 1
+            bias = bias + _bias(written)
+        else:  # per-row positions -> (B, Sq, Sk) bias
+            diff = pos2d[:, :, None] - k_pos[None, None, :]
+            ok = torch.ones(diff.shape, dtype=torch.bool, device=x.device)
+            if causal:
+                ok &= diff >= 0
+            if window > 0:
+                ok &= diff < window
+            ok &= k_pos[None, None, :] <= (cp[:, None, None] + sq - 1)
+            bias = _bias(ok)
+        out = _sdpa_dense(q, ck.to(q.dtype), cv.to(q.dtype), bias)
+        new_kv = (ck, cv)
+    else:
+        if sq <= dense_threshold:
+            bias = _mask_bias(pos2d[0], pos2d[0], causal, window)
+            out = _sdpa_dense(q, k, v, bias)
+        else:
+            out = _sdpa_flash(q, k, v, pos2d[0], pos2d[0], causal, window,
+                              flash_q_block, flash_kv_block)
+        new_kv = (k, v)
+    out = out.reshape(b, sq, num_heads * head_dim)
+    return out @ p.wo, new_kv
+
+
+# ---------------------------------------------------------------------------
+# Embedding / head
+# ---------------------------------------------------------------------------
+
+class Embedding(nn.Module):
+    """The token table (vocab, d_model)."""
+
+    def __init__(self, init: Init, vocab: int, d_model: int):
+        super().__init__()
+        self.table = init.normal((vocab, d_model), 1.0)
+
+
+class Head(nn.Module):
+    """An untied output projection (d_model, vocab)."""
+
+    def __init__(self, init: Init, d_model: int, vocab: int):
+        super().__init__()
+        self.w = init.dense((d_model, vocab))
+
+
+def embed(p, tokens):
+    """Token ids -> rows of the table."""
+    return p.table[tokens]
+
+
+def unembed(p_embed, tokens_hidden, head=None):
+    """Hidden states -> logits, through ``head`` or the tied table."""
+    if head is not None:
+        return tokens_hidden @ head.w
+    return tokens_hidden @ p_embed.table.T.to(tokens_hidden.dtype)

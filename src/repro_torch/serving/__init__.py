@@ -31,9 +31,9 @@ replica's flush and the compaction daemon. Under any fault schedule an
 answer is bit-exact or a typed error (``QueueFullError``,
 ``DeadlineExceededError``, ``ShardFailedError``), never a hang.
 
-The decode-side serving pieces of the JAX package (``serve_step``,
-``kv_cache``, ``SlotBatcher``) belong to the LM side-stack and are not
-part of this package.
+The decode side of LM serving lives beside it: ``kv_cache``
+(``pad_cache_to``), ``serve_step`` (``greedy_generate``) and ``batcher``
+(``SlotBatcher``), over ``repro_torch.models``.
 """
 
 from repro_torch.core.search import Tier

@@ -751,3 +751,98 @@ def test_cuda_classifier_matches_cpu(cuda_device):
         assert card.predict(q) == card.predict_brute(q) == cpu.predict(q)
         np.testing.assert_array_equal(card.kneighbors(q)[1].cpu().numpy(),
                                       cpu.kneighbors(q)[1].numpy())
+
+
+# ---------------------------------------------------------------------------
+# The LM serving path: the same generator-made model on the card and on the
+# CPU, in float32 with TF32 off, within 1e-4 (rtol and atol; MoE's
+# scatter-add order on the card is not fixed); tokens equal.
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def no_tf32():
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.allow_tf32 = old
+
+
+def _lm_pair(arch, dev, **over):
+    import copy
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import Model
+
+    cfg = dataclasses.replace(configs.get_smoke_config(arch),
+                              dtype="float32", **over)
+    cpu = Model(cfg, device="cpu",
+                generator=torch.Generator().manual_seed(0))
+    return cfg, cpu, copy.deepcopy(cpu).to(dev)
+
+
+def _lm_close(got, want):
+    if isinstance(want, dict):
+        assert sorted(got) == sorted(want)
+        for k in want:
+            _lm_close(got[k], want[k])
+        return
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-34b", "jamba-v0.1-52b"])
+def test_cuda_lm_matches_cpu(cuda_device, no_tf32, arch):
+    from repro_torch.serving.kv_cache import pad_cache_to
+    from repro_torch.serving.serve_step import greedy_generate
+
+    cfg, cpu, card = _lm_pair(arch, cuda_device)
+    tokens = torch.from_numpy(np.random.default_rng(171).integers(
+        0, cfg.vocab_size, (2, 16)))
+    for want, got in zip(cpu.apply({"tokens": tokens}),
+                         card.apply({"tokens": tokens.to(cuda_device)})):
+        if want is not None:
+            _lm_close(got, want)
+    res = []
+    for model in (cpu, card):
+        t = tokens.to(model.device)
+        logits, cache = model.prefill({"tokens": t[:, :15]})
+        cache = pad_cache_to(cache, 16)
+        last, cache = model.decode_step({"tokens": t[:, 15:]}, cache, 15)
+        res.append((logits, last, cache))
+    for want, got in zip(*res):
+        _lm_close(got, want)
+    assert torch.equal(
+        greedy_generate(card, tokens[:, :5].to(cuda_device), 6).cpu(),
+        greedy_generate(cpu, tokens[:, :5], 6))
+
+
+@pytest.mark.cuda
+def test_cuda_slot_batcher_matches_cpu(cuda_device, no_tf32):
+    from repro_torch.serving.batcher import Request, SlotBatcher
+
+    cfg, cpu, card = _lm_pair("granite-34b", cuda_device)
+    prompts = [(np.arange(n, dtype=np.int32) * 3 + i) % cfg.vocab_size
+               for i, n in enumerate((4, 7, 5))]
+    done = []
+    for model in (cpu, card):
+        b = SlotBatcher(model, batch_size=2, max_len=32)
+        for i, p in enumerate(prompts):
+            b.submit(Request(rid=i, prompt=p, max_new=5))
+        done.append(b.run(40))
+    assert sorted(done[0]) == sorted(done[1]) == [0, 1, 2]
+    for rid in done[0]:
+        np.testing.assert_array_equal(done[1][rid], done[0][rid])
+
+
+@pytest.mark.cuda
+def test_cuda_retrieval_serve_matches_cpu(cuda_device, no_tf32):
+    from repro_torch.examples import retrieval_serve
+
+    cfg, cpu, card = _lm_pair("granite-34b", cuda_device, d_model=64,
+                              vocab_size=512)
+    np.testing.assert_array_equal(retrieval_serve.run(card),
+                                  retrieval_serve.run(cpu))
