@@ -140,16 +140,43 @@ Phases, each of which raises (exit code 1) on a failed check:
                 decode steps, and one retrieval step of a step's LM states
                 over a fresh router on the phase's datastore; each window's
                 wall, busy time, idle share and top kernels go into the
-                ``{"lm": ...}`` line under ``profile``.
+                ``{"lm": ...}`` line under ``profile``;
+  train       — LM training (``repro_torch.training``) on a card that
+                holds nothing of the lm phase: (a) granite-34b at full
+                width, 4 of its 88 layers (2.724 B parameters; 45.7 GiB of
+                state: float32 masters of the bf16 weights, the bf16
+                copies, float32 gradient sums, mu and nu), remat, bigram
+                batches of 4 x 2048 tokens from ``--seed`` through
+                ``PrefetchingLoader``, 2 microbatches, z-loss 1e-4, AdamW
+                with warmup 2 of 10 steps: one warm-up step and 8 timed
+                ones (host clock around a synchronised step), the median
+                step and tokens/s beside the FLOP bound (remat's recompute
+                counted, dense attention included, at 989 TFLOP/s), the
+                optimizer update and bf16 refresh by CUDA events beside
+                its byte bound (30 B a parameter at 3.35 TB/s), every
+                step's loss and grad norm (finite), the peak (under 70
+                GiB); (b) the same generator-made granite at depth 1 in
+                float32 on the card and on the host CPU: the loss within
+                1e-5 relative and every gradient within 1e-3 of its
+                leaf's largest; (c) ``repro_torch.examples.train_lm`` at
+                its defaults (lm-22m, 300 steps, B 8 x S 128, checkpoints
+                under ``--disk-dir``): the loss below 2.5 at step 300;
+                then 6 steps straight against 3 + ``checkpoint.save`` +
+                ``restore`` into a fresh model and optimizer + 3, masters,
+                moments and step bitwise, and one such step traced by
+                ``torch.profiler``. It prints a ``{"train": ...}``
+                line before the kernels line. Training runs no ParIS+
+                kernel: its launch counts are read and are all 0.
 
-Phases 4, 5, classify, serve, mesh, 7, 8 and lm each drive a path with
-every launch count set to 0 just before and read just after; each kernel of
-a path must have launched on it, and a kernel's ``launches`` are its counts
-summed over those paths. Phase 2 prints the build's nvcc seconds and fails
-if any kernel instantiation spills registers. The last seven lines of
+Phases 4, 5, classify, serve, mesh, 7, 8, lm and train each drive a path
+with every launch count set to 0 just before and read just after; each
+kernel of a path must have launched on it, and a kernel's ``launches`` are
+its counts summed over those paths. Phase 2 prints the build's nvcc seconds and fails
+if any kernel instantiation spills registers. The last eight lines of
 standard output are the tuning phase's JSON object, the serve phase's, the
-mesh phase's, the lm phase's, the kernels' JSON object, the ``nvidia-smi``
-name and power limit, and ``{"ok": true, "device": ...}``.
+mesh phase's, the lm phase's, the train phase's, the kernels' JSON object,
+the ``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
+...}``.
 It imports no JAX: the port is the package ``repro_torch`` under ``src/``.
 """
 
@@ -198,6 +225,7 @@ PATH_KERNELS = {
     "mesh": ("paa_isax", "lower_bound_sq_batch", "lower_bound_sq",
              "euclid_sq"),
     "lm": ("paa_isax", "lower_bound_sq_batch", "euclid_sq"),
+    "train": (),  # LM training runs no ParIS+ kernel
 }
 # Each kernel's name in the launch-shape registry (euclid_min keeps a fixed
 # shape: 256 threads, 4 rows a warp, at most 2048 blocks).
@@ -2401,10 +2429,28 @@ def phase_lm(args, dev) -> tuple:
     return counts, fig
 
 
-def profile_window(name: str, fn, top: int = 8) -> dict:
+KERNEL_KINDS = (  # a card kernel's kind, by the first pattern in its name
+    ("matmul", ("gemm", "gemv", "xmma", "nvjet", "cutlass", "cublas")),
+    ("reduction", ("reduce", "softmax")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled", "copy",
+                     "fill")),
+)
+
+
+def kernel_kind(name: str) -> str:
+    """``KERNEL_KINDS``' kind of a card kernel's name, else ``other``."""
+    low = name.lower()
+    for kind, pats in KERNEL_KINDS:
+        if any(p in low for p in pats):
+            return kind
+    return "other"
+
+
+def profile_window(name: str, fn, top: int = 8, tag: str = "lm") -> dict:
     """Trace ``fn()`` once by ``torch.profiler``, after a warm-up call: the
     wall time, the summed time of the card's kernels (one stream, so the
-    busy time), the idle share 1 - busy / wall and the top kernels."""
+    busy time), the idle share 1 - busy / wall, the busy time by kernel
+    kind (``kernel_kind``) and the top kernels."""
     import collections
 
     import torch
@@ -2425,14 +2471,18 @@ def profile_window(name: str, fn, top: int = 8) -> dict:
             by_name[e.name] += e.time_range.elapsed_us()
             n += 1
     busy = sum(by_name.values()) / 1e6
-    expect(n > 0, f"lm profile {name}: the trace holds no kernel")
+    expect(n > 0, f"{tag} profile {name}: the trace holds no kernel")
+    by_kind = collections.Counter()
+    for k, v in by_name.items():
+        by_kind[kernel_kind(k)] += v / 1e6
     out = dict(wall_s=wall, busy_s=busy, idle_share=1 - busy / wall,
-               kernels=n, top=[(k[:90], v / 1e6) for k, v in
-                               by_name.most_common(top)])
-    log(f"[lm] profile {name}: wall {wall:.4f} s; {n} kernels, busy "
-        f"{busy:.4f} s; idle share {out['idle_share']:.3f}")
+               kernels=n, by_kind=dict(by_kind),
+               top=[(k[:90], v / 1e6) for k, v in by_name.most_common(top)])
+    log(f"[{tag}] profile {name}: wall {wall:.4f} s; {n} kernels, busy "
+        f"{busy:.4f} s; idle share {out['idle_share']:.3f}; busy by kind "
+        + ", ".join(f"{k} {v:.4f} s" for k, v in by_kind.most_common()))
     for k, v in out["top"]:
-        log(f"[lm] profile {name}:   {v:.4f} s  {k}")
+        log(f"[{tag}] profile {name}:   {v:.4f} s  {k}")
     return out
 
 
@@ -2624,6 +2674,272 @@ def lm_f32_checks(cfg, dev, seed: int) -> dict:
     torch.cuda.empty_cache()
     return out
 
+TRAIN_ARCH = "granite-34b"
+TRAIN_LAYERS = 4  # of 88: 2.724 B parameters, 45.7 GiB of training state
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 4, 2048, 2  # rows, tokens, microbatches
+TRAIN_STEPS = 8  # timed steps, after one warm-up step
+TRAIN_OPT_ITERS = 3  # optimizer updates timed by CUDA events
+TRAIN_HOST_BATCH = (2, 64)  # (b): rows x tokens on the card and the host
+TRAIN_LOSS_RTOL = 1e-5  # (b): the loss within 1e-5 relative
+TRAIN_GRAD_TOL = 1e-3  # (b): each gradient within 1e-3 of its leaf's largest
+TRAIN_LM_MAX_LOSS = 2.5  # (c): the example's loss at step 300
+ADAM_BYTES_PER_PARAM = 30  # read master, grad, mu, nu (4 each); write
+# master, mu, nu (4 each) and the bf16 compute copy (2)
+
+
+def train_flops(cfg, n_block_mm: int, n_head: int, tokens: int) -> float:
+    """FLOPs of one remat training step: 8 a parameter a token in the
+    blocks' matmuls (forward, recompute, backward), 6 in the head's, plus
+    the dense attention's two (S, S) products, 4 passes of 4 B S^2 H hd
+    each (forward, recompute, two backward) a layer."""
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    attn = 16 * cfg.num_layers * b * s * s * cfg.num_heads * cfg.head_dim
+    return tokens * (8 * n_block_mm + 6 * n_head) + attn
+
+
+def phase_train(args, dev) -> tuple:
+    """LM training on one card: (a) granite-34b at full width, 4 layers,
+    bf16 with float32 masters, remat, microbatches, the prefetching loader;
+    (b) depth 1 in float32 on the card against the host CPU (loss and
+    every gradient); (c) the ``train_lm`` example at its defaults, then 6
+    steps straight against 3 + save + restore into a fresh state + 3,
+    bitwise. Returns (the path's launch counts, the ``{"train": ...}``
+    figures)."""
+    import dataclasses
+    import statistics
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model
+    from repro_torch.training import data as data_mod
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training import train_step as ts_mod
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(configs.get_config(TRAIN_ARCH),
+                              num_layers=TRAIN_LAYERS)
+    model = Model(cfg, device=dev, remat=True,
+                  generator=torch.Generator(dev).manual_seed(args.seed))
+    state = ts_mod.init_train_state(model)
+    n_params = sum(p.numel() for p in state.params)
+    n_block_mm = sum(p.numel() for n, p in zip(state.names, state.params)
+                     if n.startswith("blocks.") and p.dim() >= 2)
+    n_head = model.lm_head.w.numel()
+    state_gib = (  # compute copies, separate masters, mu + nu + grad sums
+        sum(p.numel() * p.element_size() for p in state.params)
+        + sum(4 * p.numel() for p in state.params
+              if p.dtype != torch.float32)
+        + 12 * n_params) / 2**30
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = train_flops(cfg, n_block_mm, n_head, tokens)
+    bound_s = flops / BF16_OPS_PER_S
+    log(f"[train] (a) {TRAIN_ARCH} at full width, {TRAIN_LAYERS} of "
+        f"{configs.get_config(TRAIN_ARCH).num_layers} layers, {cfg.dtype} "
+        f"with float32 masters, remat: {n_params / 1e9:.3f} B parameters; "
+        f"state {state_gib:.2f} GiB; B {TRAIN_BATCH} x S {TRAIN_SEQ}, "
+        f"{TRAIN_MICRO} microbatches; FLOP bound {flops:.4g} a step "
+        f"({flops / tokens / 1e9:.2f} GFLOP a token of matmuls and "
+        f"attention) at 989 TFLOP/s dense bf16: {bound_s:.4f} s")
+    tcfg = ts_mod.TrainConfig(
+        optimizer=opt_mod.OptimizerConfig(warmup_steps=2, total_steps=10),
+        microbatches=TRAIN_MICRO, z_loss=1e-4)
+    step_fn = ts_mod.make_train_step(model, tcfg)
+    ops.reset_launch_counts()  # the train path starts here
+    loader = data_mod.PrefetchingLoader(
+        data_mod.bigram_batch, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size,
+        seed=args.seed, device=dev)
+    secs, losses, norms = [], [], []
+    try:
+        for i in range(1 + TRAIN_STEPS):
+            _, batch = next(loader)
+            (state, m), dt = timed(lambda: step_fn(state, batch))
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            if i:
+                secs.append(dt)
+            log(f"[train] (a) step {i}: {dt * 1e3:.1f} ms, loss "
+                f"{losses[-1]:.5f}, grad_norm {norms[-1]:.5f}, lr "
+                f"{float(m['lr']):.3g}")
+    finally:
+        loader.close()
+    counts = path_counts("train")  # the train path ends here
+    expect(all(math.isfinite(x) for x in losses + norms),
+           "train (a): a non-finite loss or grad_norm")
+    step_s = statistics.median(secs)
+    # Where a step's time goes: one more step (after another warm-up one)
+    # traced by torch.profiler, after the counts are read.
+    prof_batch = batch
+    profile = profile_window(
+        "one step", lambda: step_fn(state, prof_batch), tag="train")
+
+    # The optimizer update (and the bf16 refresh) alone, by CUDA events.
+    grads = [torch.randn_like(m).mul_(1e-3) for m in state.master]
+    opt_ms = time_ms(lambda: (opt_mod.adamw_update(
+        tcfg.optimizer, state.master, grads, state.opt, state.ranks),
+        state.refresh()), TRAIN_OPT_ITERS)
+    opt_bytes = ADAM_BYTES_PER_PARAM * n_params
+    opt_bound_ms = opt_bytes / HBM_BYTES_PER_S * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    fig = dict(
+        arch=TRAIN_ARCH, layers=TRAIN_LAYERS, params=n_params,
+        dtype=cfg.dtype, state_gib=state_gib, batch=TRAIN_BATCH,
+        seq=TRAIN_SEQ, microbatches=TRAIN_MICRO, remat=True,
+        step_ms=[x * 1e3 for x in secs], median_step_ms=step_s * 1e3,
+        tokens_per_s=tokens / step_s, flop_per_step=flops,
+        flop_bound_ms=bound_s * 1e3, flop_bound_share=bound_s / step_s,
+        loss=losses, grad_norm=norms, optimizer_ms=opt_ms,
+        optimizer_bytes=opt_bytes, optimizer_bound_ms=opt_bound_ms,
+        peak_gib=peak, launches=counts, profile=profile)
+    log(f"[train] (a) median step {step_s * 1e3:.2f} ms over {TRAIN_STEPS} "
+        f"(host clock around a synchronised step), {tokens / step_s:.0f} "
+        f"tokens/s; {100 * bound_s / step_s:.1f}% of the FLOP bound "
+        f"({bound_s * 1e3:.2f} ms); optimizer + bf16 refresh {opt_ms:.3f} ms "
+        f"by CUDA events against {opt_bound_ms:.3f} ms ({opt_bytes:.4g} B "
+        f"at 3.35 TB/s, {ADAM_BYTES_PER_PARAM} B a parameter); peak "
+        f"{peak:.2f} GiB (limit {MAX_PEAK_GIB:.0f})")
+    expect(peak < MAX_PEAK_GIB, f"train (a) peak memory {peak:.2f} GiB")
+    del grads, state, model, step_fn, batch, m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    fig["card_vs_host"] = train_host_check(cfg, dev, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fig["train_lm"] = train_lm_check(args, dev)
+    return counts, fig
+
+
+def train_host_check(cfg, dev, seed: int) -> dict:
+    """(b): the same generator-made model at depth 1 in float32 on the card
+    and on the host CPU: one batch's loss and every gradient."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import Model
+    from repro_torch.training import data as data_mod
+    from repro_torch.training import train_step as ts_mod
+
+    c1 = dataclasses.replace(cfg, num_layers=1, dtype="float32")
+    card = Model(c1, device=dev, generator=torch.Generator(dev).manual_seed(
+        seed))
+    host = Model(c1, device="cpu")  # filled from the card's parameters
+    host.load_state_dict(card.state_dict())
+    b, s = TRAIN_HOST_BATCH
+    batch = data_mod.bigram_batch(0, b, s, c1.vocab_size, seed=seed)
+    t0 = time.perf_counter()
+    out = []
+    for m in (card, host):
+        st = ts_mod.init_train_state(m)
+        x = {k: torch.from_numpy(v).to(m.device) for k, v in batch.items()}
+        loss, _ = ts_mod.make_loss_fn(m, ts_mod.TrainConfig(z_loss=1e-4))(x)
+        out.append((st.names, loss.detach().cpu(),
+                    [g.cpu() for g in torch.autograd.grad(loss, st.params)]))
+        del st, x, loss
+    (names, loss_c, g_c), (_, loss_h, g_h) = out
+    rel = abs(float(loss_c) - float(loss_h)) / abs(float(loss_h))
+    expect(math.isfinite(float(loss_c)) and rel <= TRAIN_LOSS_RTOL,
+           f"train (b): loss {float(loss_c)} on the card, {float(loss_h)} "
+           "on the host")
+    worst = 0.0
+    for name, gc_, gh in zip(names, g_c, g_h):
+        scale = float(gh.abs().max())
+        err = float((gc_ - gh).abs().max()) / max(scale, 1e-30)
+        expect(bool(gc_.isfinite().all()) and err <= TRAIN_GRAD_TOL,
+               f"train (b): gradient {name} {err:.3g} of its largest "
+               f"({scale:.3g}) from the host's")
+        worst = max(worst, err)
+    n = sum(p.numel() for p in card.parameters())
+    log(f"[train] (b) depth 1, float32, full width ({n / 1e9:.3f} B "
+        f"parameters), {b} x {s} tokens: the card's loss {float(loss_c):.6f} "
+        f"within {rel:.3g} of the host's, every gradient within {worst:.3g} "
+        f"of its leaf's largest ({time.perf_counter() - t0:.1f} s)")
+    del card, host, out
+    return dict(params=n, loss_rel=rel, grad_max_rel=worst)
+
+
+def train_lm_check(args, dev) -> dict:
+    """(c): ``repro_torch.examples.train_lm`` at its defaults on the card,
+    then 6 steps straight against 3 + save + restore into a fresh model
+    and optimizer + 3, masters, moments and step bitwise; then one of its
+    steps traced (busy time, idle share, kernels)."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.examples import train_lm
+    from repro_torch.models import Model
+    from repro_torch.training import checkpoint as ckpt_mod
+    from repro_torch.training import data as data_mod
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training import train_step as ts_mod
+
+    root = tempfile.mkdtemp(prefix="paris_train_", dir=args.disk_dir)
+    try:
+        res = train_lm.main(["--ckpt-dir", os.path.join(root, "example"),
+                             "--device", str(dev)])
+        expect(res["steps"] == 300 and res["last_loss"] < TRAIN_LM_MAX_LOSS,
+               f"train (c): the example's loss {res['last_loss']} at step "
+               f"300 (limit {TRAIN_LM_MAX_LOSS})")
+        log(f"[train] (c) train_lm (lm-22m, 300 steps, B 8 x S 128): loss "
+            f"{res['first_loss']:.4f} -> {res['last_loss']:.4f}, "
+            f"{res['tokens_per_s']:.0f} tokens/s, {res['seconds']:.2f} s "
+            "with its checkpoints")
+        cfg = train_lm.model_config(False)
+        tcfg = ts_mod.TrainConfig(optimizer=opt_mod.OptimizerConfig(
+            learning_rate=1e-3, warmup_steps=20, total_steps=300))
+
+        def fresh(seed):
+            model = Model(cfg, device=dev, remat=False,
+                          generator=torch.Generator(dev).manual_seed(seed))
+            return ts_mod.init_train_state(model), ts_mod.make_train_step(
+                model, tcfg)
+
+        def run(st, fn, start, n):
+            for i in range(start, start + n):
+                b = data_mod.bigram_batch(i, 8, 128, cfg.vocab_size)
+                st, _ = fn(st, {k: torch.from_numpy(v).to(dev)
+                                for k, v in b.items()})
+            return st
+
+        st, fn = fresh(args.seed)
+        straight = convert.train_state_to_arrays(run(st, fn, 0, 6))
+        st, fn = fresh(args.seed)
+        ckpt_mod.save(os.path.join(root, "resume"), 3, run(st, fn, 0, 3))
+        del st, fn
+        st, fn = fresh(args.seed + 1)
+        _, step = ckpt_mod.restore_latest(os.path.join(root, "resume"), st)
+        resumed = convert.train_state_to_arrays(run(st, fn, 3, 3))
+        same = step == 3 and all(
+            a.dtype == b.dtype and (a == b).all()
+            for a, b in zip(_leaves(straight), _leaves(resumed)))
+        expect(same, "train (c): 3 + restore + 3 steps differ from 6 "
+               "straight")
+        log("[train] (c) 6 steps straight and 3 + save + restore into a "
+            "fresh model and optimizer + 3: masters, moments and step "
+            "bitwise equal")
+        res["resume_bitwise"] = True
+        # Where the example's step goes (host or card): one traced step.
+        b = {k: torch.from_numpy(v).to(dev) for k, v in
+             data_mod.bigram_batch(6, 8, 128, cfg.vocab_size).items()}
+        res["profile"] = profile_window("train_lm step",
+                                        lambda: fn(st, b), tag="train")
+        return res
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _leaves(tree) -> list:
+    """A train-state tree's numpy leaves in a fixed order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
 
 def main(argv=None) -> int:
     """Run every phase on the card; exit 0 only if all of them passed."""
@@ -2686,10 +3002,12 @@ def main(argv=None) -> int:
     full_counts = full["counts"]
     del full  # the LM phase starts from a card holding no index
     lm_counts, lm_fig = phase("lm", phase_lm, args, dev)
+    train_counts, train_fig = phase("train", phase_train, args, dev)
     for row in rows:  # launches: summed over the driven paths
         row["launches"] = sum(c[row["name"]] for c in (
             full_counts, base_counts, classify_counts, serve_counts,
-            mesh_counts, packed_counts, disk_counts, lm_counts))
+            mesh_counts, packed_counts, disk_counts, lm_counts,
+            train_counts))
         expect(row["launches"] > 0, f"{row['name']} never launched")
     expect(sorted(r["name"] for r in rows) == sorted(KERNEL_ROWS),
            "the kernels line must list every kernel")
@@ -2698,6 +3016,7 @@ def main(argv=None) -> int:
     print(json.dumps({"serve": serve_fig}))
     print(json.dumps({"mesh": mesh_fig}))
     print(json.dumps({"lm": lm_fig}))
+    print(json.dumps({"train": train_fig}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

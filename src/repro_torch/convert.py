@@ -22,6 +22,15 @@ layer within it) are taken apart into the module lists, the ``prefix``
 list is taken entry by entry, and each leaf is cast as the model casts it.
 ``cache_from_arrays`` carries a cache tree (the layouts are the same) to
 the port's device, so a JAX cache can feed the port's ``decode_step``.
+
+``train_state_from_arrays`` takes a JAX train state, the tuple ``(params,
+OptState(step, mu, nu))`` of numpy arrays, and returns the port's
+:class:`~repro_torch.training.train_step.TrainState`: the model, the
+float32 masters (the tree's float32 parameters), the moments and the
+step; ``load_train_state`` fills an existing state the same way.
+``train_state_to_arrays`` goes back, stacking the per-layer tensors into
+JAX's leaves; the checkpoint writes that tree, so either package restores
+what the other saved.
 """
 
 from __future__ import annotations
@@ -34,6 +43,9 @@ from repro_torch.core.distributed import DistIndex
 from repro_torch.core.index import ParISIndex
 from repro_torch.core.search import PackedComponents
 from repro_torch.models import Model
+from repro_torch.models.model import jax_leaf
+from repro_torch.training.optimizer import OptState
+from repro_torch.training.train_step import TrainState, init_train_state
 
 
 def index_from_arrays(sax, pos, bucket_offsets, raw, series_length: int,
@@ -155,18 +167,14 @@ def dist_index_from_arrays(sax, raw_sorted, pos, series_length: int,
 
 
 def _leaf(tree, name: str) -> np.ndarray:
-    """The JAX tree's array for the port parameter ``name``: a numeric
-    component indexes a list where the tree holds one (``prefix``), else
-    it is a stacking axis of the leaf, applied in order."""
-    node, stack = tree, []
-    for part in name.split("."):
-        if not part.isdigit():
-            node = node[part]
-        elif isinstance(node, (list, tuple)):
-            node = node[int(part)]
-        else:
-            stack.append(int(part))
-    return np.asarray(node)[tuple(stack)]
+    """The JAX tree's array for the port parameter ``name``
+    (``models.model.jax_leaf``: its leaf's path, then its index along the
+    leaf's stacking axes)."""
+    path, stack = jax_leaf(name)
+    node = tree
+    for key in path:
+        node = node[key]
+    return node[stack] if stack else node
 
 
 def _tree_size(tree) -> int:
@@ -205,3 +213,80 @@ def cache_from_arrays(tree, device="cuda"):
         return torch.from_numpy(arr.astype(np.float32)).to(
             device=dev, dtype=torch.bfloat16)
     return torch.from_numpy(np.array(arr)).to(dev)
+
+
+def _tensor(x) -> torch.Tensor:
+    """A host array (numpy, or a CPU tensor) as a tensor of its own."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.from_numpy(np.array(x))
+
+
+def load_train_state(state: TrainState, tree) -> TrainState:
+    """Fill ``state`` in place from a JAX train state ``(params,
+    OptState)`` of host arrays: masters, moments and step, then the
+    model's compute copies from the masters."""
+    params, opt = tree
+    with torch.no_grad():
+        for i, name in enumerate(state.names):
+            for dst, src in ((state.master[i], params), (state.opt.mu[i],
+                                                         opt.mu),
+                             (state.opt.nu[i], opt.nu)):
+                arr = _leaf(src, name)
+                if tuple(arr.shape) != tuple(dst.shape):
+                    raise ValueError(f"{name}: tree shape {tuple(arr.shape)}"
+                                     f" != {tuple(dst.shape)}")
+                dst.copy_(_tensor(arr))
+        state.opt.step.copy_(_tensor(opt.step))
+    state.refresh()
+    return state
+
+
+def train_state_from_arrays(cfg, tree, device="cuda") -> TrainState:
+    """A JAX train state ``(params, OptState)`` of numpy arrays -> the
+    port's ``TrainState`` on ``device``."""
+    model = model_from_arrays(cfg, tree[0], device)
+    return load_train_state(init_train_state(model), tree)
+
+
+def _stack_tree(names, tensors) -> dict:
+    """Per-parameter tensors -> JAX's parameter tree of numpy arrays: the
+    parameters of one leaf stacked along its stacking axes, ``prefix`` a
+    list."""
+    groups = {}
+    for name, t in zip(names, tensors):
+        path, stack = jax_leaf(name)
+        groups.setdefault(path, []).append((stack, t.detach().cpu().numpy()))
+    tree = {}
+    for path, items in groups.items():
+        arr = items[0][1]
+        if items[0][0]:
+            lead = tuple(1 + max(s[k] for s, _ in items)
+                         for k in range(len(items[0][0])))
+            arr = np.empty(lead + arr.shape, arr.dtype)
+            for stack, a in items:
+                arr[stack] = a
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = arr
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        out = {k: lists(v) for k, v in node.items()}
+        if all(isinstance(k, int) for k in out):
+            return [out[i] for i in range(len(out))]
+        return out
+
+    return lists(tree)
+
+
+def train_state_to_arrays(state: TrainState) -> tuple:
+    """The port's ``TrainState`` -> JAX's train state ``(params,
+    OptState(step, mu, nu))`` of host numpy arrays (float32 parameters:
+    the masters)."""
+    return (_stack_tree(state.names, state.master),
+            OptState(step=state.opt.step.cpu().numpy(),
+                     mu=_stack_tree(state.names, state.opt.mu),
+                     nu=_stack_tree(state.names, state.opt.nu)))

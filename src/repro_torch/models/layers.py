@@ -67,7 +67,8 @@ class Init:
 
 
 def _param(x: torch.Tensor) -> nn.Parameter:
-    # Serving computes no gradient; the training slice turns them on.
+    # Serving computes no gradient; ``training.init_train_state`` turns
+    # gradients on for the model it trains.
     return nn.Parameter(x, requires_grad=False)
 
 
@@ -306,7 +307,8 @@ def _sdpa_flash(q, k, v, q_pos, k_pos, causal, window, q_block, k_block,
             s = torch.einsum("bqkgh,bskh->bkgqs", qb, kb).float()
             s.mul_(scale).add_(_mask_bias(qpb, kpb, causal, window))
             m_new = torch.maximum(m, s.amax(dim=-1))
-            p = s.sub_(m_new[..., None]).exp_()
+            # Out of place: ``amax`` keeps ``s`` for its gradient.
+            p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
             lsum = lsum * corr + p.sum(dim=-1)
             acc = acc * corr[..., None] + torch.einsum(

@@ -20,11 +20,18 @@ the two packages leaf for leaf.
 Where the cast happens: the JAX package's ``apply`` casts every float32
 leaf of its *stacked* parameter tree with ``ndim > 1`` to the compute
 dtype, on every call. The port casts once, when the model is built, and
-keeps the same split: a parameter is cast when its own ndim plus its
-stacking depth (1 under ``blocks``, 2 under ``periods``, 0 elsewhere) is
-above 1. So under bfloat16 the per-layer norm scales of ``blocks`` and
-``periods`` are bfloat16, as in JAX, while ``final_norm`` and the
-``prefix`` layers' 1-D leaves stay float32.
+keeps the same split: a parameter is cast when its rank in JAX's tree
+(:func:`jax_rank`: its own ndim plus its stacking depth, 1 under
+``blocks``, 2 under ``periods``, 0 elsewhere) is above 1. So under
+bfloat16 the per-layer norm scales of ``blocks`` and ``periods`` are
+bfloat16, as in JAX, while ``final_norm`` and the ``prefix`` layers' 1-D
+leaves stay float32. Training keeps float32 masters of the cast leaves
+(``training/train_step.py``), and its weight decay follows the same rank.
+
+``remat`` (default on, as in JAX) recomputes each block of ``blocks``,
+each period and each RWKV layer in the backward pass
+(``torch.utils.checkpoint``), as ``jax.checkpoint`` wraps each scan step;
+it acts only while a gradient is being recorded, so serving never sees it.
 """
 
 from __future__ import annotations
@@ -33,11 +40,38 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.models import frontend, layers, mamba, moe, rwkv
 from repro_torch.models.layers import Init
+
+
+def jax_leaf(name: str) -> tuple:
+    """Where parameter ``name`` (a ``named_parameters`` name) lives in the
+    JAX package's tree: (the path of its leaf, its index along the leaf's
+    stacking axes). A layer number indexes a list in JAX's tree under
+    ``prefix`` and a stacking axis elsewhere: ``blocks.3.attn.wq`` is
+    ``(("blocks", "attn", "wq"), (3,))``, ``periods.1.mamba.2.mix.D`` is
+    ``(("periods", "mamba", "mix", "D"), (1, 2))`` and ``prefix.0.mlp.wo``
+    is ``(("prefix", 0, "mlp", "wo"), ())``."""
+    path, stack = [], []
+    for part in name.split("."):
+        if not part.isdigit():
+            path.append(part)
+        elif path[-1] == "prefix":
+            path.append(int(part))
+        else:
+            stack.append(int(part))
+    return tuple(path), tuple(stack)
+
+
+def jax_rank(name: str, p: torch.Tensor) -> int:
+    """The rank of parameter ``name``'s leaf in the JAX package's stacked
+    tree: its own ndim plus the leaf's stacking axes (1 under ``blocks``,
+    2 under ``periods``)."""
+    return p.dim() + len(jax_leaf(name)[1])
 
 
 class Block(nn.Module):
@@ -98,47 +132,63 @@ class Model(nn.Module):
     """A config-driven LM on ``device`` (``"cuda"`` unless the caller asks
     for the CPU). Parameters are drawn from ``generator`` (a
     ``torch.Generator`` on that device); with no generator they are left
-    uninitialized, for ``convert.model_from_arrays`` to fill."""
+    uninitialized, for ``convert.model_from_arrays`` to fill. ``remat``
+    recomputes each block in the backward pass (module docstring)."""
 
     def __init__(self, cfg: ModelConfig, device="cuda",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 remat: bool = True):
         super().__init__()
         self.cfg = cfg
+        self.remat = remat
         self.compute_dtype = (torch.bfloat16 if cfg.dtype == "bfloat16"
                               else torch.float32)
         init = Init(resolve_device(device), generator)
         self.embed = self._cast(
-            layers.Embedding(init, cfg.vocab_size, cfg.d_model), 0)
+            layers.Embedding(init, cfg.vocab_size, cfg.d_model), "embed")
         self.final_norm = layers.RMSNorm(init, cfg.d_model)
         if not cfg.tie_embeddings:
             self.lm_head = self._cast(
-                layers.Head(init, cfg.d_model, cfg.vocab_size), 0)
+                layers.Head(init, cfg.d_model, cfg.vocab_size), "lm_head")
         if cfg.frontend != "none":
             self.frontend = self._cast(
-                frontend.Frontend(init, cfg.frontend_dim, cfg.d_model), 0)
+                frontend.Frontend(init, cfg.frontend_dim, cfg.d_model),
+                "frontend")
         if cfg.block_pattern:  # Jamba period stack
             period = len(cfg.block_pattern)
             n_periods = cfg.num_layers // period
             if n_periods * period != cfg.num_layers:
                 raise ValueError("block_pattern must tile num_layers")
             self.periods = nn.ModuleList(
-                self._cast(Period(init, cfg), 2) for _ in range(n_periods))
+                self._cast(Period(init, cfg), f"periods.{i}")
+                for i in range(n_periods))
         else:
             n_prefix = cfg.first_k_dense
             self.prefix = nn.ModuleList(
-                self._cast(Block(init, cfg, force_dense=True), 0)
-                for _ in range(n_prefix))
+                self._cast(Block(init, cfg, force_dense=True), f"prefix.{i}")
+                for i in range(n_prefix))
             self.blocks = nn.ModuleList(
-                self._cast(Block(init, cfg, force_dense=False), 1)
-                for _ in range(cfg.num_layers - n_prefix))
+                self._cast(Block(init, cfg, force_dense=False),
+                           f"blocks.{i}")
+                for i in range(cfg.num_layers - n_prefix))
 
-    def _cast(self, module: nn.Module, depth: int) -> nn.Module:
-        """Cast ``module``'s float32 parameters whose ndim plus ``depth``
-        (the JAX tree's stacking axes) is above 1 to the compute dtype."""
-        for p in module.parameters():
-            if p.dtype == torch.float32 and p.dim() + depth > 1:
+    def _cast(self, module: nn.Module, prefix: str) -> nn.Module:
+        """Cast the float32 parameters of ``module`` (the model's attribute
+        ``prefix``, such as ``blocks.3``) whose :func:`jax_rank` is above 1
+        to the compute dtype."""
+        for name, p in module.named_parameters():
+            if p.dtype == torch.float32 and jax_rank(f"{prefix}.{name}",
+                                                     p) > 1:
                 p.data = p.data.to(self.compute_dtype)
         return module
+
+    def _step(self, fn, *args):
+        """``fn(*args)``, recomputed in the backward pass when ``remat``
+        is on and a gradient is being recorded for the parameters."""
+        if (self.remat and torch.is_grad_enabled()
+                and self.embed.table.requires_grad):
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
 
     @property
     def device(self) -> torch.device:
@@ -212,7 +262,8 @@ class Model(nn.Module):
                                     self.cfg.num_layers))
         new = {name: [] for name in st}
         for i, lp in enumerate(self.blocks):
-            x, s = self._rwkv_block(lp, x, {n: v[i] for n, v in st.items()})
+            x, s = self._step(self._rwkv_block, lp, x,
+                              {n: v[i] for n, v in st.items()})
             for name in new:
                 new[name].append(s[name])
         new_cache = None
@@ -231,9 +282,12 @@ class Model(nn.Module):
                 kvc = None
                 if cache is not None and stack in cache:
                     kvc = (cache[stack]["k"][i], cache[stack]["v"][i])
-                x, new_kv, aux = self._attn_ffn_block(
-                    lp, x, positions, self._window(i + offset), kvc,
-                    cache_pos)
+                args = (lp, x, positions, self._window(i + offset), kvc,
+                        cache_pos)
+                # JAX scans (and remats) ``blocks``; ``prefix`` is unrolled.
+                x, new_kv, aux = (
+                    self._attn_ffn_block(*args) if stack == "prefix"
+                    else self._step(self._attn_ffn_block, *args))
                 ks.append(new_kv[0])
                 vs.append(new_kv[1])
                 auxs.append(aux)
@@ -244,7 +298,6 @@ class Model(nn.Module):
         return x, new_cache, aux_total
 
     def _backbone_periods(self, x, positions, cache, cache_pos):
-        cfg = self.cfg
         names = ("attn_k", "attn_v", "mamba_conv", "mamba_ssm")
         new = {n: [] for n in names}
         auxs = []
@@ -252,41 +305,8 @@ class Model(nn.Module):
         for pi, pp in enumerate(self.periods):
             st = (None if cache is None else
                   {n: v[pi] for n, v in cache["periods"].items()})
-            per = {n: [] for n in names}
-            ia = im = imlp = imoe = 0
-            aux_p = self._zero()
-            for i, kind in enumerate(cfg.block_pattern):
-                if kind == "attn":
-                    lp = pp.attn[ia]
-                    kvc = None if st is None else (
-                        st["attn_k"][ia], st["attn_v"][ia])
-                    hn = layers.rmsnorm(lp.ln1, h, cfg.norm_eps)
-                    out, new_kv = self._attention(
-                        lp.mix, hn, positions, 0, kvc, cache_pos, True, None)
-                    per["attn_k"].append(new_kv[0])
-                    per["attn_v"].append(new_kv[1])
-                    ia += 1
-                else:
-                    lp = pp.mamba[im]
-                    mst = None if st is None else (
-                        st["mamba_conv"][im], st["mamba_ssm"][im])
-                    hn = layers.rmsnorm(lp.ln1, h, cfg.norm_eps)
-                    out, (conv, ssm) = mamba.mamba_block(
-                        lp.mix, hn, d_state=cfg.mamba_d_state,
-                        chunk=cfg.mamba_chunk, state=mst)
-                    per["mamba_conv"].append(conv)
-                    per["mamba_ssm"].append(ssm)
-                    im += 1
-                h = h + out
-                hn = layers.rmsnorm(lp.ln2, h, cfg.norm_eps)
-                if cfg.num_experts and i % cfg.moe_every == cfg.moe_offset:
-                    f, aux = self._ffn(pp.moe[imoe], None, hn)
-                    aux_p = aux_p + aux
-                    imoe += 1
-                else:
-                    f, _ = self._ffn(None, pp.mlp[imlp], hn)
-                    imlp += 1
-                h = h + f
+            h, per, aux_p = self._step(self._period, pp, h, positions, st,
+                                       cache_pos)
             auxs.append(aux_p)
             if cache is not None:
                 for n in names:
@@ -296,6 +316,48 @@ class Model(nn.Module):
             new_cache = {"periods": {n: torch.stack(v) for n, v in
                                      new.items()}}
         return h, new_cache, torch.stack(auxs).sum()
+
+    def _period(self, pp, h, positions, st, cache_pos):
+        """One repeat of ``block_pattern``: (h, its new states by name, its
+        summed aux loss)."""
+        cfg = self.cfg
+        per = {n: [] for n in ("attn_k", "attn_v", "mamba_conv",
+                               "mamba_ssm")}
+        ia = im = imlp = imoe = 0
+        aux_p = self._zero()
+        for i, kind in enumerate(cfg.block_pattern):
+            if kind == "attn":
+                lp = pp.attn[ia]
+                kvc = None if st is None else (
+                    st["attn_k"][ia], st["attn_v"][ia])
+                hn = layers.rmsnorm(lp.ln1, h, cfg.norm_eps)
+                out, new_kv = self._attention(
+                    lp.mix, hn, positions, 0, kvc, cache_pos, True, None)
+                per["attn_k"].append(new_kv[0])
+                per["attn_v"].append(new_kv[1])
+                ia += 1
+            else:
+                lp = pp.mamba[im]
+                mst = None if st is None else (
+                    st["mamba_conv"][im], st["mamba_ssm"][im])
+                hn = layers.rmsnorm(lp.ln1, h, cfg.norm_eps)
+                out, (conv, ssm) = mamba.mamba_block(
+                    lp.mix, hn, d_state=cfg.mamba_d_state,
+                    chunk=cfg.mamba_chunk, state=mst)
+                per["mamba_conv"].append(conv)
+                per["mamba_ssm"].append(ssm)
+                im += 1
+            h = h + out
+            hn = layers.rmsnorm(lp.ln2, h, cfg.norm_eps)
+            if cfg.num_experts and i % cfg.moe_every == cfg.moe_offset:
+                f, aux = self._ffn(pp.moe[imoe], None, hn)
+                aux_p = aux_p + aux
+                imoe += 1
+            else:
+                f, _ = self._ffn(None, pp.mlp[imlp], hn)
+                imlp += 1
+            h = h + f
+        return h, per, aux_p
 
     # ------------------------------------------------------------------
     def _window(self, i: int) -> int:
@@ -359,7 +421,8 @@ class Model(nn.Module):
         return logits, new_cache, aux
 
     def forward_train(self, batch: dict):
-        """Forward only (no gradient in this package yet): (logits, aux)."""
+        """The training forward: (logits, aux). Differentiable; with
+        ``remat`` each block is recomputed in the backward pass."""
         logits, _, aux = self.apply(batch)
         return logits, aux
 

@@ -846,3 +846,125 @@ def test_cuda_retrieval_serve_matches_cpu(cuda_device, no_tf32):
                               vocab_size=512)
     np.testing.assert_array_equal(retrieval_serve.run(card),
                                   retrieval_serve.run(cpu))
+
+
+# ---------------------------------------------------------------------------
+# LM training: the same generator-made model trained on the card and on the
+# CPU in float32 with TF32 off. Metrics within 1e-4 relative; moments within
+# 1e-3 of their leaf's largest magnitude; masters within lr / 4 (an Adam
+# step moves a weight by up to lr whatever its gradient's size, so one
+# whose gradient is within float noise of 0 may move either way).
+# ---------------------------------------------------------------------------
+
+def _train_states(arch, dev, **over):
+    from repro_torch.training import train_step as ts
+
+    cfg, cpu, card = _lm_pair(arch, dev, **over)
+    return cfg, ts.init_train_state(cpu), ts.init_train_state(card)
+
+
+def _bigram(step, cfg, dev, b=4, s=16):
+    from repro_torch.training import data as data_mod
+
+    return {k: torch.from_numpy(v).to(dev) for k, v in
+            data_mod.bigram_batch(step, b, s, cfg.vocab_size).items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-34b", "olmoe-1b-7b"])
+def test_cuda_train_steps_match_cpu(cuda_device, no_tf32, arch):
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training import train_step as ts
+
+    cfg, cpu, card = _train_states(arch, cuda_device)
+    ocfg = opt_mod.OptimizerConfig(warmup_steps=1, total_steps=10)
+    tcfg = ts.TrainConfig(optimizer=ocfg, microbatches=2)
+    for step in range(2):
+        ms = []
+        for st in (cpu, card):
+            _, m = ts.make_train_step(st.model, tcfg)(
+                st, _bigram(step, cfg, st.device))
+            ms.append(m)
+        for k in ms[0]:
+            np.testing.assert_allclose(float(ms[1][k]), float(ms[0][k]),
+                                       rtol=1e-4, err_msg=k)
+    for name, a, b in zip(cpu.names, cpu.master, card.master):
+        torch.testing.assert_close(b.cpu(), a, rtol=0,
+                                   atol=ocfg.learning_rate / 4, msg=name)
+    for moments in ("mu", "nu"):
+        for name, a, b in zip(cpu.names, getattr(cpu.opt, moments),
+                              getattr(card.opt, moments)):
+            tol = 1e-3 * float(a.abs().max()) + 1e-30
+            torch.testing.assert_close(b.cpu(), a, rtol=0, atol=tol,
+                                       msg=name)
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_restores_on_cpu_bitwise(cuda_device, tmp_path):
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import Model
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training import train_step as ts
+
+    cfg = configs.get_smoke_config("granite-34b")  # bf16 with f32 masters
+    card = ts.init_train_state(Model(
+        cfg, device=cuda_device,
+        generator=torch.Generator(cuda_device).manual_seed(0)))
+    card, _ = ts.make_train_step(card.model, ts.TrainConfig())(
+        card, _bigram(0, cfg, cuda_device))
+    ckpt.save(str(tmp_path), 1, card)
+    cpu = ts.init_train_state(Model(dataclasses.replace(cfg), device="cpu",
+                                    generator=torch.Generator()))
+    ckpt.restore(str(tmp_path), 1, cpu)
+    assert int(cpu.opt.step) == int(card.opt.step) == 1
+    for got, want in ((cpu.master, card.master), (cpu.opt.mu, card.opt.mu),
+                      (cpu.opt.nu, card.opt.nu), (cpu.params, card.params)):
+        for a, b in zip(got, want):  # the bf16 copies refreshed too
+            assert a.dtype == b.dtype and torch.equal(a, b.detach().cpu())
+
+
+@pytest.mark.cuda
+def test_cuda_prefetching_loader_yields_card_tensors(cuda_device):
+    from repro_torch.training import data as data_mod
+
+    loader = data_mod.PrefetchingLoader(data_mod.bigram_batch, 2, 16, 100,
+                                        start_step=4, device=cuda_device)
+    try:
+        for want in (4, 5, 6):
+            step, batch = next(loader)
+            assert step == want
+            ref = data_mod.bigram_batch(step, 2, 16, 100)
+            for k, v in batch.items():
+                assert v.device == cuda_device
+                np.testing.assert_array_equal(v.cpu().numpy(), ref[k])
+    finally:
+        loader.close()
+    assert not loader._thread.is_alive()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,over", [
+    ("granite-34b", dict(attn_dense_threshold=8, attn_flash_q_block=8,
+                         attn_flash_kv_block=8)),
+    ("rwkv6-1.6b", {})], ids=["granite-flash", "rwkv6"])
+def test_cuda_remat_on_equals_off_bitwise(cuda_device, no_tf32, arch, over):
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import Model
+    from repro_torch.training import train_step as ts
+
+    cfg = dataclasses.replace(configs.get_smoke_config(arch),
+                              dtype="float32", **over)
+    batch = _bigram(1, cfg, cuda_device, b=2, s=32)
+    out = []
+    for remat in (True, False):
+        model = Model(cfg, device=cuda_device, remat=remat,
+                      generator=torch.Generator(cuda_device).manual_seed(0))
+        st = ts.init_train_state(model)
+        loss, _ = ts.make_loss_fn(model, ts.TrainConfig())(batch)
+        out.append((loss, torch.autograd.grad(loss, st.params)))
+    assert torch.equal(out[0][0], out[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
