@@ -91,9 +91,10 @@ Phases, each of which raises (exit code 1) on a failed check:
                 guarantee; peak device memory must stay under 70 GiB. Then
                 the packed lower-bound kernel's row of phase 6;
   8. disk     — the paper's disk path at N = 2**disk_log2_n (default
-                2**min(log2_n, 23): the phase writes over 4.5 times its
+                2**min(log2_n, 22): the phase writes over 4.5 times its
                 raw bytes, and prints what it wrote; the H100 hosts it runs
-                on stop a command past 45 GiB of disk writes). Phase 4's first N series, made
+                on stop a command past 45 GiB of disk writes, and the shard
+                phase writes a 12.7 GiB checkpoint). Phase 4's first N series, made
                 again on the card, are written to a float32 file in a fresh
                 directory under ``--disk-dir`` (fsync'd, then dropped from
                 the page cache) and built from it by ``PipelineBuilder`` in
@@ -119,7 +120,7 @@ Phases, each of which raises (exit code 1) on a failed check:
                 each position kept, 2^20 (state, next token) pairs, then
                 ``build_index``; (b) the kNN-LM loop of
                 ``examples/retrieval_serve.py`` (16 sequences, 16-token
-                prompts, 64 steps, k 8, lam 0.3, round 512) over an
+                prompts, 16 steps, k 8, lam 0.3, round 512) over an
                 ``IngestingRouter`` of 2 base shards, each step's states
                 appended and the deltas folded every 4 steps; every step's
                 positions equal an on-card brute force over the datastore
@@ -166,15 +167,46 @@ Phases, each of which raises (exit code 1) on a failed check:
                 moments and step bitwise, and one such step traced by
                 ``torch.profiler``. It prints a ``{"train": ...}``
                 line before the kernels line. Training runs no ParIS+
-                kernel: its launch counts are read and are all 0.
+                kernel: its launch counts are read and are all 0;
+  shard       — sharded training over a ("data", "model") ``DeviceMesh``
+                (``repro_torch.training.sharding``): (a) one NCCL rank on a
+                (1, 1) mesh, granite-34b at full width, 2 of its 88
+                layers, bf16 with float32 masters, remat, B 4 x S 2048 in 2
+                microbatches: 2 plain steps and 2 steps on the distributed
+                state from the same init and batches, losses, grad norms
+                and every master bitwise, the step times of both; (b) 4
+                gloo ranks on the card, a (2, 2) mesh, granite-34b at full
+                width, 1 layer, float32 (1.134 B parameters), B 4 x S 512,
+                warmup 0: each rank holds its ``param_pspec`` blocks (its
+                state bytes against the unsharded state's), the first
+                batch's loss and gradients (each within 1e-3 of its leaf's
+                largest) and 2 steps against the single-card step (losses
+                within 1e-5 relative, masters within lr / 4), a checkpoint
+                after step 1; (c) 2 gloo ranks, a (2, 1) mesh, olmoe-1b-7b at
+                full width, 1 layer, float32, capacity 64, 2 x 128 tokens a
+                rank: local against global dispatch logits within 1e-3, and
+                two runs of forward + backward bitwise; (d) (b)'s checkpoint
+                restored onto a (4, 1) mesh and step 2 taken again: its
+                loss within 1e-5 of (b)'s, masters within lr / 4 of the
+                single card's, and the checkpoint's files byte-identical to
+                a single-process save of the same state (restored on the
+                host; the bytes made in memory). It prints wall times,
+                every rank's peak (summed with the parent's: under 70 GiB)
+                and collective counts (``CommDebugMode``), and a
+                ``{"shard": ...}`` line before the kernels line. The gloo
+                ranks share the one card (NCCL takes one rank a card) and
+                stage DTensor's collectives through the host: no figure of
+                this phase is a multi-card one. Its launch counts are read
+                and are all 0.
 
-Phases 4, 5, classify, serve, mesh, 7, 8, lm and train each drive a path
+Phases 4, 5, classify, serve, mesh, 7, 8, lm, train and shard each drive a path
 with every launch count set to 0 just before and read just after; each
 kernel of a path must have launched on it, and a kernel's ``launches`` are
 its counts summed over those paths. Phase 2 prints the build's nvcc seconds and fails
-if any kernel instantiation spills registers. The last eight lines of
+if any kernel instantiation spills registers. The last nine lines of
 standard output are the tuning phase's JSON object, the serve phase's, the
-mesh phase's, the lm phase's, the train phase's, the kernels' JSON object,
+mesh phase's, the lm phase's, the train phase's, the shard phase's, the
+kernels' JSON object,
 the ``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
 ...}``.
 It imports no JAX: the port is the package ``repro_torch`` under ``src/``.
@@ -226,6 +258,7 @@ PATH_KERNELS = {
              "euclid_sq"),
     "lm": ("paa_isax", "lower_bound_sq_batch", "euclid_sq"),
     "train": (),  # LM training runs no ParIS+ kernel
+    "shard": (),  # nor does sharded training
 }
 # Each kernel's name in the launch-shape registry (euclid_min keeps a fixed
 # shape: 256 threads, 4 rows a warp, at most 2048 blocks).
@@ -240,8 +273,9 @@ APPEND_BATCH = 1 << 20  # series per live append
 # pipelines' epoch shards, the base, the appends, the runs, the major
 # fold's base, the cold epoch; it prints what it wrote), and the H100
 # hosts it runs on stop a command whose disk writes pass 45 GiB, deleted
-# files included: 2^24 series (16 GiB of raw) do not fit, 2^23 do.
-DISK_LOG2_N_MAX = 23
+# files included: 2^24 series (16 GiB of raw) do not fit, and 2^23 (37
+# GiB written) leaves no room for the shard phase's 12.7 GiB checkpoint.
+DISK_LOG2_N_MAX = 22
 
 
 class CheckFailed(AssertionError):
@@ -2229,7 +2263,8 @@ LM_LAYERS = 8  # of granite-34b's 88: one card holds 4.84 B bf16 parameters
 LM_CORPUS = (256, 4096)  # bigram sequences x positions: 2^20 pairs, n = 256
 LM_CHUNK = 4  # corpus sequences an apply
 LM_SHARDS = 2  # base shards of the kNN-LM router
-LM_BATCH, LM_STEPS, LM_PROMPT = 16, 64, 16  # sequences, decode steps, prompt
+LM_BATCH, LM_STEPS, LM_PROMPT = 16, 16, 16  # sequences, decode steps, prompt
+# (16 steps, not the example's 64: the shard phase needs the time)
 LM_K, LM_LAM, LM_ROUND = 8, 0.3, 512  # the example's k, lam and round size
 LM_SLOTS, LM_MAX_LEN, LM_REQUESTS, LM_MAX_NEW = 8, 256, 32, 32
 LM_TOL = 1e-3  # (d): logits within 1e-3 of the largest absolute logit
@@ -2932,6 +2967,295 @@ def train_lm_check(args, dev) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+SHARD_ARCH = "granite-34b"
+SHARD_A_LAYERS = 2  # (a): of 88, bf16 with float32 masters, remat
+SHARD_A_BATCH = (4, 2048, 2)  # (a): rows, tokens, microbatches
+SHARD_A_STEPS = 2  # (a): steps of each state
+SHARD_B_LAYERS = 1  # (b): float32, 1.134 B parameters
+SHARD_B_BATCH = (4, 512)  # (b), (d): rows x tokens a step
+SHARD_B_WORLD, SHARD_B_SHAPE = 4, (2, 2)  # (b): gloo ranks on the one card
+SHARD_D_SHAPE = (4, 1)  # (d): the mesh (b)'s checkpoint is restored onto
+SHARD_C_ARCH = "olmoe-1b-7b"  # (c): full width, depth 1, float32
+SHARD_C_TOKENS = (2, 128)  # (c): rows x tokens a rank
+SHARD_C_CAPACITY = 64.0  # (c): dropless, as the JAX test
+SHARD_LOSS_RTOL = 1e-5  # (b), (d): loss within 1e-5 relative
+SHARD_GRAD_TOL = 1e-3  # (b): each gradient within 1e-3 of its leaf's largest
+SHARD_MOE_TOL = 1e-3  # (c): local against global logits (the JAX test's)
+SHARD_LR = 3e-4  # OptimizerConfig's default peak; warmup 0
+SHARD_PARAM_TOL = SHARD_LR / 4  # (b), (d): masters within lr / 4
+SHARD_GROUP_TIMEOUT_S = 300  # a collective that waits this long fails
+SHARD_JOIN_TIMEOUT_S = 600  # a mesh that has not returned by then fails
+
+
+def run_shard(world: int, backend: str, plan: list, dev) -> tuple:
+    """Spawn ``world`` ranks over ``backend`` on the card and run
+    ``sharding.run_plan(plan)``; returns (every rank's result, the
+    parent's peak bytes while they ran, wall seconds)."""
+    import torch
+
+    from repro_torch.core import distributed as mesh_mod
+    from repro_torch.training import sharding
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as store:
+        ranks = mesh_mod.spawn_mesh(
+            sharding.run_plan, world, backend=backend,
+            init_method=f"file://{store}/rendezvous",
+            timeout=SHARD_GROUP_TIMEOUT_S, join_timeout=SHARD_JOIN_TIMEOUT_S,
+            device=dev, args=(plan,))
+    return ranks, torch.cuda.max_memory_allocated(), time.perf_counter() - t0
+
+
+def shard_figures(ranks, name: str, parent_peak: int, wall: float,
+                  full_bytes: int) -> dict:
+    """A multi-rank step's figures: wall time, the slowest rank's steps,
+    every rank's state bytes against the unsharded state's, peaks (summed
+    with the parent's, which must stay under the limit), collectives."""
+    rs = [r[name] for r in ranks]
+    peaks = [r["peak_bytes"] for r in rs]
+    total = (sum(peaks) + parent_peak) / 2**30
+    expect(total < MAX_PEAK_GIB, f"shard {name}: peak memory summed over "
+           f"the parent and the ranks {total:.2f} GiB")
+    return dict(wall_s=wall, steps_s=max(r["seconds"] for r in rs),
+                state_bytes=[r["state_bytes"] for r in rs],
+                unsharded_state_bytes=full_bytes,
+                rank_peak_gib=[p / 2**30 for p in peaks],
+                parent_peak_gib=parent_peak / 2**30, peak_sum_gib=total,
+                collectives=[r["collectives"] for r in rs])
+
+
+def phase_shard(args, dev) -> tuple:
+    """Sharded training over a ("data", "model") ``DeviceMesh``
+    (``repro_torch.training.sharding``): (a) one NCCL rank, a (1, 1) mesh,
+    granite-34b at full width, depth 2, bf16: the plain step and the step
+    on the distributed state bitwise; (b) 4 gloo ranks on the card, a
+    (2, 2) mesh, depth 1 in float32, 2 steps against the single-card step
+    (loss, every gradient, the masters), a checkpoint after step 1; (c) 2
+    gloo ranks, a (2, 1) mesh, olmoe-1b-7b at full width, depth 1: local
+    against global dispatch, and two runs of forward + backward bitwise;
+    (d) (b)'s checkpoint restored onto a (4, 1) mesh and step 2 taken
+    again, its files byte-identical to a single-process save of the same
+    state. Several ranks on one card are not a multi-card figure. Returns
+    (the path's launch counts, the ``{"shard": ...}`` figures)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model
+    from repro_torch.training import checkpoint as ckpt_mod
+    from repro_torch.training import data as data_mod
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training import train_step as ts_mod
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()  # the shard path starts here
+    fig = {"note": "gloo ranks share the one card and stage DTensor's "
+           "collectives through the host: no figure here is a multi-card "
+           "one"}
+    base = configs.get_config(SHARD_ARCH)
+    tcfg = ts_mod.TrainConfig(optimizer=opt_mod.OptimizerConfig(
+        learning_rate=SHARD_LR, warmup_steps=0, total_steps=10),
+        z_loss=1e-4)
+
+    # (a) one NCCL rank: the plain state against the distributed one.
+    b, s, micro = SHARD_A_BATCH
+    cfg_a = dataclasses.replace(base, num_layers=SHARD_A_LAYERS)
+    plan = [("a", "plain_vs_sharded", dict(
+        cfg=cfg_a, tcfg=dataclasses.replace(tcfg, microbatches=micro),
+        seed=args.seed, axes=("data", "model"), remat=True,
+        batches=[data_mod.bigram_batch(i, b, s, cfg_a.vocab_size,
+                                       seed=args.seed)
+                 for i in range(SHARD_A_STEPS)]))]
+    ranks, parent_peak, wall = run_shard(1, "nccl", plan, dev)
+    a = ranks[0]["a"]
+    log(f"[shard] (a) {SHARD_ARCH} at full width, {SHARD_A_LAYERS} layers, "
+        f"bf16 with float32 masters, remat, B {b} x S {s} in {micro} "
+        f"microbatches, one NCCL rank on a (1, 1) mesh: {a['params'] / 1e9:.3f}"
+        f" B parameters; losses plain {a['plain_losses']} sharded "
+        f"{a['sharded_losses']}; step s plain {a['plain_step_s']} sharded "
+        f"{a['sharded_step_s']} (the first step of each carries its "
+        f"warm-up); masters max diff {a['master_max_diff']}; rank peak "
+        f"{a['peak_bytes'] / 2**30:.2f} GiB; {wall:.1f} s")
+    expect(a["loss_equal"] and a["norm_equal"] and a["master_equal"],
+           f"shard (a): the sharded step differs from the plain one (loss "
+           f"{a['loss_equal']}, grad norm {a['norm_equal']}, masters max "
+           f"diff {a['master_max_diff']})")
+    fig["a"] = dict(a, wall_s=wall, parent_peak_gib=parent_peak / 2**30)
+
+    # (b) the single-card float32 reference, then 4 gloo ranks.
+    cfg_b = dataclasses.replace(base, num_layers=SHARD_B_LAYERS,
+                                dtype="float32")
+    b, s = SHARD_B_BATCH
+    batches = [data_mod.bigram_batch(i, b, s, cfg_b.vocab_size,
+                                     seed=args.seed) for i in range(2)]
+    t0 = time.perf_counter()
+    model = Model(cfg_b, device=dev, remat=False,
+                  generator=torch.Generator(dev).manual_seed(args.seed))
+    init = {n: p.detach().clone() for n, p in model.named_parameters()}
+    state = ts_mod.init_train_state(model)
+    on_card = [{k: torch.from_numpy(v).to(dev) for k, v in x.items()}
+               for x in batches]
+    loss, _ = ts_mod.make_loss_fn(model, tcfg)(on_card[0])
+    ref_grads = dict(zip(state.names, (g.detach() for g in
+                                       torch.autograd.grad(loss,
+                                                           state.params))))
+    step_fn = ts_mod.make_train_step(model, tcfg)
+    ref_losses = []
+    for x in on_card:
+        state, m = step_fn(state, x)
+        ref_losses.append(float(m["loss"]))
+    ref_master = dict(zip(state.names, state.master))
+    n_params = sum(p.numel() for p in state.params)
+    full_bytes = 12 * n_params  # float32 masters (the parameters), mu, nu
+    del state, step_fn, loss, m, on_card, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[shard] (b) reference: {SHARD_ARCH} at full width, "
+        f"{SHARD_B_LAYERS} layer, float32, {n_params / 1e9:.3f} B "
+        f"parameters, B {b} x S {s}, one card: losses {ref_losses} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    root = tempfile.mkdtemp(prefix="paris_shard_", dir=args.disk_dir)
+    try:
+        ckpt = os.path.join(root, "b")
+        plan = [("b", "train", dict(
+            cfg=cfg_b, tcfg=tcfg, shape=SHARD_B_SHAPE, init=None, source=init,
+            batches=batches, ref_grads=ref_grads, ref_master=ref_master,
+            save={1: ckpt}))]
+        ranks, parent_peak, wall = run_shard(SHARD_B_WORLD, "gloo", plan, dev)
+        r = ranks[0]["b"]
+        for other in ranks[1:]:
+            expect(other["b"]["losses"] == r["losses"],
+                   "shard (b): ranks disagree on the losses")
+        worst_g = max(x["b"]["grad_err"] for x in ranks)
+        worst_m = max(x["b"]["master_err"] for x in ranks)
+        rel = [abs(x - y) / abs(y) for x, y in zip(r["losses"], ref_losses)]
+        fig["b"] = dict(shard_figures(ranks, "b", parent_peak, wall,
+                                      full_bytes),
+                        params=n_params, losses=r["losses"],
+                        ref_losses=ref_losses, loss_rel=rel,
+                        grad_max_rel=worst_g, master_max_abs=worst_m)
+        log(f"[shard] (b) {SHARD_B_WORLD} gloo ranks on the card, a "
+            f"{SHARD_B_SHAPE} mesh: losses {r['losses']} (relative to the "
+            f"card's {rel}); first batch's gradients within {worst_g:.3g} "
+            f"of each leaf's largest; masters after step 2 within "
+            f"{worst_m:.3g} (lr / 4 = {SHARD_PARAM_TOL:.3g}); state bytes a "
+            f"rank {fig['b']['state_bytes']} against {full_bytes} "
+            f"unsharded; rank peaks {fig['b']['rank_peak_gib']} GiB, summed "
+            f"with the parent's {fig['b']['peak_sum_gib']:.2f} GiB; "
+            f"collectives a rank {fig['b']['collectives']}; steps "
+            f"{fig['b']['steps_s']:.1f} s (grads + 2 steps + the save), "
+            f"wall {wall:.1f} s")
+        expect(all(x <= SHARD_LOSS_RTOL for x in rel),
+               f"shard (b): losses {r['losses']} against {ref_losses}")
+        expect(worst_g <= SHARD_GRAD_TOL,
+               f"shard (b): a gradient {worst_g:.3g} of its leaf's largest "
+               "from the single card's")
+        expect(worst_m <= SHARD_PARAM_TOL,
+               f"shard (b): a master {worst_m:.3g} from the single card's")
+        del ref_grads
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (d) (b)'s step-1 checkpoint onto a (4, 1) mesh, then step 2.
+        plan = [("d", "train", dict(
+            cfg=cfg_b, tcfg=tcfg, shape=SHARD_D_SHAPE, init=None,
+            restore=(ckpt, 1), batches=batches[1:],
+            ref_master=ref_master))]
+        ranks, parent_peak, wall = run_shard(
+            math.prod(SHARD_D_SHAPE), "gloo", plan, dev)
+        d = ranks[0]["d"]
+        rel_d = abs(d["losses"][0] - r["losses"][1]) / abs(r["losses"][1])
+        worst_d = max(x["d"]["master_err"] for x in ranks)
+        del ref_master, init
+        gc.collect()
+        torch.cuda.empty_cache()
+        # The files against a single-process save of the same state: the
+        # checkpoint restored on the host, its save's bytes made in memory.
+        t0 = time.perf_counter()
+        host = ts_mod.init_train_state(Model(cfg_b, device="cpu"))
+        ckpt_mod.restore(ckpt, 1, host)
+        step_dir = os.path.join(ckpt, "step_00000001")
+        same, n_files, n_bytes = True, 0, 0
+        for fn, data in ckpt_mod.encoded(host, 1):
+            with open(os.path.join(step_dir, fn), "rb") as f:
+                same &= f.read() == data
+            n_files += 1
+            n_bytes += len(data)
+        same &= n_files == len(os.listdir(step_dir))
+        del host
+        gc.collect()
+        fig["d"] = dict(shard_figures(ranks, "d", parent_peak, wall,
+                                      full_bytes),
+                        loss=d["losses"][0], loss_rel_to_b=rel_d,
+                        master_max_abs=worst_d, files=n_files,
+                        file_bytes=n_bytes, bytes_identical=same,
+                        compare_s=time.perf_counter() - t0)
+        log(f"[shard] (d) (b)'s step-1 checkpoint ({n_files} files, "
+            f"{n_bytes / 2**30:.2f} GiB) restored onto a {SHARD_D_SHAPE} mesh "
+            f"of {math.prod(SHARD_D_SHAPE)} gloo ranks: step 2 loss "
+            f"{d['losses'][0]} ({rel_d:.3g} relative to (b)'s), masters "
+            f"within {worst_d:.3g} of the single card's; files "
+            f"byte-identical to a single-process save: {same}; rank peaks "
+            f"{fig['d']['rank_peak_gib']} GiB; collectives a rank "
+            f"{fig['d']['collectives']}; wall {wall:.1f} s")
+        expect(rel_d <= SHARD_LOSS_RTOL, f"shard (d): step 2 loss "
+               f"{d['losses'][0]} against (b)'s {r['losses'][1]}")
+        expect(worst_d <= SHARD_PARAM_TOL,
+               f"shard (d): a master {worst_d:.3g} from the single card's")
+        expect(same, "shard (d): the sharded save's files differ from a "
+               "single-process save of the same state")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # (c) olmoe: local against global dispatch, and replays bitwise.
+    cfg_c = dataclasses.replace(configs.get_config(SHARD_C_ARCH),
+                                num_layers=1, dtype="float32",
+                                capacity_factor=SHARD_C_CAPACITY)
+    rows, seq = SHARD_C_TOKENS
+    tokens = torch.randint(0, cfg_c.vocab_size, (2 * rows, seq),
+                           generator=torch.Generator().manual_seed(args.seed))
+    model = Model(cfg_c, device=dev, remat=False,
+                  generator=torch.Generator(dev).manual_seed(args.seed))
+    init = {n: p.detach() for n, p in model.named_parameters()}
+    plan = [("c", "moe", dict(cfg=cfg_c, shape=(2, 1), init=None,
+                              source=init, tokens=tokens.numpy(),
+                              dispatch=("global", "local"), runs=2,
+                              backward=True))]
+    ranks, parent_peak, wall = run_shard(2, "gloo", plan, dev)
+    c = ranks[0]["c"]
+    err = float(abs(c["global"] - c["local"]).max())
+    replay = all(x["c"][f"{k}_replay_bitwise"] for x in ranks
+                 for k in ("global", "local"))
+    peaks = [x["c"]["peak_bytes"] / 2**30 for x in ranks]
+    total = sum(peaks) + parent_peak / 2**30
+    n_c = sum(p.numel() for p in model.parameters())
+    del model, init
+    gc.collect()
+    torch.cuda.empty_cache()
+    fig["c"] = dict(params=n_c, local_vs_global=err, replay_bitwise=replay,
+                    rank_peak_gib=peaks, peak_sum_gib=total, wall_s=wall)
+    log(f"[shard] (c) {SHARD_C_ARCH} at full width, 1 layer, float32, "
+        f"capacity {SHARD_C_CAPACITY}, {n_c / 1e9:.3f} B parameters, 2 gloo "
+        f"ranks on a (2, 1) mesh, {rows} x {seq} tokens a rank: local "
+        f"against global logits {err:.3g} (limit {SHARD_MOE_TOL}); two runs "
+        f"of forward + backward bitwise: {replay}; rank peaks {peaks} GiB, "
+        f"summed with the parent's {total:.2f} GiB; wall {wall:.1f} s")
+    expect(err <= SHARD_MOE_TOL, f"shard (c): local dispatch {err:.3g} from "
+           "global")
+    expect(replay, "shard (c): two runs of the MoE forward + backward differ")
+    expect(total < MAX_PEAK_GIB, f"shard (c): peak memory {total:.2f} GiB")
+    counts = path_counts("shard")  # the shard path ends here
+    for name, n in counts.items():
+        expect(n == 0, f"shard: kernel {name} launched {n} times")
+    fig["launches"] = counts
+    return counts, fig
+
+
 def _leaves(tree) -> list:
     """A train-state tree's numpy leaves in a fixed order."""
     if isinstance(tree, dict):
@@ -3003,11 +3327,12 @@ def main(argv=None) -> int:
     del full  # the LM phase starts from a card holding no index
     lm_counts, lm_fig = phase("lm", phase_lm, args, dev)
     train_counts, train_fig = phase("train", phase_train, args, dev)
+    shard_counts, shard_fig = phase("shard", phase_shard, args, dev)
     for row in rows:  # launches: summed over the driven paths
         row["launches"] = sum(c[row["name"]] for c in (
             full_counts, base_counts, classify_counts, serve_counts,
             mesh_counts, packed_counts, disk_counts, lm_counts,
-            train_counts))
+            train_counts, shard_counts))
         expect(row["launches"] > 0, f"{row['name']} never launched")
     expect(sorted(r["name"] for r in rows) == sorted(KERNEL_ROWS),
            "the kernels line must list every kernel")
@@ -3017,6 +3342,7 @@ def main(argv=None) -> int:
     print(json.dumps({"mesh": mesh_fig}))
     print(json.dumps({"lm": lm_fig}))
     print(json.dumps({"train": train_fig}))
+    print(json.dumps({"shard": shard_fig}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

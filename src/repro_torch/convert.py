@@ -30,7 +30,10 @@ float32 masters (the tree's float32 parameters), the moments and the
 step; ``load_train_state`` fills an existing state the same way.
 ``train_state_to_arrays`` goes back, stacking the per-layer tensors into
 JAX's leaves; the checkpoint writes that tree, so either package restores
-what the other saved.
+what the other saved. For a state placed over a mesh, ``load_train_state``
+copies each rank's block of every leaf (read from a memory-mapped file, a
+block at a time) and ``train_state_to_arrays`` gathers every leaf on every
+rank (a collective), keeping the host arrays only where ``keep`` is set.
 """
 
 from __future__ import annotations
@@ -44,6 +47,8 @@ from repro_torch.core.index import ParISIndex
 from repro_torch.core.search import PackedComponents
 from repro_torch.models import Model
 from repro_torch.models.model import jax_leaf
+from repro_torch.models.layers import is_dtensor
+from repro_torch.training import sharding
 from repro_torch.training.optimizer import OptState
 from repro_torch.training.train_step import TrainState, init_train_state
 
@@ -225,7 +230,8 @@ def _tensor(x) -> torch.Tensor:
 def load_train_state(state: TrainState, tree) -> TrainState:
     """Fill ``state`` in place from a JAX train state ``(params,
     OptState)`` of host arrays: masters, moments and step, then the
-    model's compute copies from the masters."""
+    model's compute copies from the masters. A DTensor leaf takes this
+    rank's block of the array."""
     params, opt = tree
     with torch.no_grad():
         for i, name in enumerate(state.names):
@@ -236,7 +242,10 @@ def load_train_state(state: TrainState, tree) -> TrainState:
                 if tuple(arr.shape) != tuple(dst.shape):
                     raise ValueError(f"{name}: tree shape {tuple(arr.shape)}"
                                      f" != {tuple(dst.shape)}")
-                dst.copy_(_tensor(arr))
+                if is_dtensor(dst):
+                    arr = np.ascontiguousarray(arr[sharding.local_block(
+                        dst.shape, dst.device_mesh, dst.placements)])
+                sharding.local(dst).copy_(_tensor(arr))
         state.opt.step.copy_(_tensor(opt.step))
     state.refresh()
     return state
@@ -249,14 +258,26 @@ def train_state_from_arrays(cfg, tree, device="cuda") -> TrainState:
     return load_train_state(init_train_state(model), tree)
 
 
-def _stack_tree(names, tensors) -> dict:
+def _host_array(t, keep: bool = True):
+    """A tensor's global value as a host numpy array (a DTensor is gathered
+    on every rank: a collective), or None where ``keep`` is unset."""
+    if is_dtensor(t):
+        t = t.full_tensor()
+    return t.detach().cpu().numpy() if keep else None
+
+
+def _stack_tree(names, tensors, keep: bool = True):
     """Per-parameter tensors -> JAX's parameter tree of numpy arrays: the
     parameters of one leaf stacked along its stacking axes, ``prefix`` a
-    list."""
+    list (None where ``keep`` is unset, after the same gathers)."""
+    if not keep:
+        for t in tensors:
+            _host_array(t, keep=False)
+        return None
     groups = {}
     for name, t in zip(names, tensors):
         path, stack = jax_leaf(name)
-        groups.setdefault(path, []).append((stack, t.detach().cpu().numpy()))
+        groups.setdefault(path, []).append((stack, _host_array(t)))
     tree = {}
     for path, items in groups.items():
         arr = items[0][1]
@@ -282,11 +303,12 @@ def _stack_tree(names, tensors) -> dict:
     return lists(tree)
 
 
-def train_state_to_arrays(state: TrainState) -> tuple:
+def train_state_to_arrays(state: TrainState, keep: bool = True) -> tuple:
     """The port's ``TrainState`` -> JAX's train state ``(params,
     OptState(step, mu, nu))`` of host numpy arrays (float32 parameters:
-    the masters)."""
-    return (_stack_tree(state.names, state.master),
+    the masters). Over a mesh every rank must call it (each leaf is
+    gathered); ``keep`` unset leaves None in place of the arrays."""
+    return (_stack_tree(state.names, state.master, keep),
             OptState(step=state.opt.step.cpu().numpy(),
-                     mu=_stack_tree(state.names, state.opt.mu),
-                     nu=_stack_tree(state.names, state.opt.nu)))
+                     mu=_stack_tree(state.names, state.opt.mu, keep),
+                     nu=_stack_tree(state.names, state.opt.nu, keep)))

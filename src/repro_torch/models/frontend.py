@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.models import layers
 from repro_torch.models.layers import Init
 
 
@@ -27,7 +28,7 @@ class Frontend(nn.Module):
 
 def audio_embed(p, frames):
     """(B, S, frontend_dim) precomputed frames -> (B, S, d_model)."""
-    return frames @ p.proj
+    return layers.logical(frames @ p.proj, "batch", "seq", "embed")
 
 
 def vision_merge(p, token_embeds, patch_embeds):

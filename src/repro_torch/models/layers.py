@@ -5,8 +5,17 @@ owns its parameters under the JAX package's dict keys (``wq``, ``scale``,
 ``table`` ...), so ``convert.model_from_arrays`` maps a JAX parameter tree
 onto it name for name, and a function ``f(p, x, ...)`` over that module,
 written as the JAX function is: the same casts, the same masks, the same
-online softmax. ``logical``/``set_logical_rules`` (sharding annotations)
-have no counterpart on one card.
+online softmax.
+
+Logical axis annotations (``logical``/``set_logical_rules``, the JAX
+package's ``repro/models/layers.py:26-45``) sit at the JAX package's sites.
+With no rules (one card, the default) ``logical`` returns its argument
+untouched. With rules and a ``DeviceMesh`` (``training/sharding.py``'s
+``use_logical_rules``) a DTensor activation is redistributed to the
+placements the rules name for each of its axes: the port's
+``with_sharding_constraint``. A dimension that the named mesh axes do not
+divide stays replicated (GSPMD pads such a dimension; DTensor would shard
+it unevenly).
 
 Attention supports: causal / bidirectional, GQA/MQA (kv heads broadcast),
 sliding-window masks (Gemma-3 local layers), RoPE and M-RoPE (Qwen2-VL),
@@ -18,6 +27,7 @@ with a scalar or a per-row write position. It is written with
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -26,6 +36,71 @@ import torch.nn.functional as F
 from torch import nn
 
 NEG = -1e30  # additive mask bias: a fully masked row softmaxes to uniform
+
+
+# ---------------------------------------------------------------------------
+# Logical axis annotations (resolved to mesh axes in training/sharding.py).
+# ---------------------------------------------------------------------------
+
+_LOGICAL_RULES = None  # set by training.sharding.use_logical_rules
+_ACTIVE_MESH = None  # the DeviceMesh those rules refer to
+
+
+def set_logical_rules(rules, mesh=None):
+    """Install ``rules`` (logical axis name -> mesh axis name, a tuple of
+    them, or None) over ``mesh``; ``None`` removes them."""
+    global _LOGICAL_RULES, _ACTIVE_MESH
+    _LOGICAL_RULES = rules
+    _ACTIVE_MESH = mesh
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a DTensor (a tensor placed over a ``DeviceMesh``)."""
+    if not isinstance(x, torch.Tensor) or type(x) is torch.Tensor:
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+@contextlib.contextmanager
+def replicated_constants():
+    """Inside this context plain tensors (positions, masks, the step) mix
+    with DTensors as replicated ones. DTensor's own
+    ``implicit_replication`` turns the flag off on exit even when it was
+    on before; this one restores it, so it nests (remat recomputes a layer
+    inside the train step's context)."""
+    from torch.distributed.tensor import DTensor
+
+    disp = DTensor._op_dispatcher
+    prev = disp._allow_implicit_replication
+    disp._allow_implicit_replication = True
+    try:
+        yield
+    finally:
+        disp._allow_implicit_replication = prev
+
+
+def logical(x: torch.Tensor, *names: Optional[str]) -> torch.Tensor:
+    """Annotate activation x with logical axis names (no-op without rules):
+    a DTensor is redistributed to the placements the rules name."""
+    if _LOGICAL_RULES is None or not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = _ACTIVE_MESH
+    dims = mesh.mesh_dim_names
+    placements = [Replicate()] * len(dims)
+    for d, name in enumerate(names):
+        axes = _LOGICAL_RULES.get(name) if name else None
+        axes = (axes,) if isinstance(axes, str) else tuple(axes or ())
+        axes = [a for a in axes if a in dims
+                and mesh.size(dims.index(a)) > 1]
+        if x.shape[d] % math.prod(mesh.size(dims.index(a))
+                                  for a in axes) == 0:
+            for a in axes:
+                placements[dims.index(a)] = Shard(d)
+    return x.redistribute(mesh, placements)
 
 
 # ---------------------------------------------------------------------------
@@ -147,11 +222,13 @@ def mlp(p, x, mlp_type="swiglu"):
     if mlp_type in ("swiglu", "geglu"):
         act = silu if mlp_type == "swiglu" else gelu_tanh
         h = act(x @ p.wi_gate) * (x @ p.wi_up)
+        h = logical(h, "batch", "mlp_seq", "mlp")
         return h @ p.wo
     if mlp_type == "relu2":
         h = torch.square(F.relu(x @ p.wi))
     else:
         h = gelu_tanh(x @ p.wi)
+    h = logical(h, "batch", "mlp_seq", "mlp")
     return h @ p.wo
 
 
@@ -320,6 +397,65 @@ def _sdpa_flash(q, k, v, q_pos, k_pos, causal, window, q_block, k_block,
     return out[:, :sq].to(q.dtype)
 
 
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose gradient is made contiguous: a local step's
+    einsum gradients are strided, and DTensor's views of them (the head
+    split of a projection) need them dense."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def contiguous_grad(x: torch.Tensor) -> torch.Tensor:
+    """``x``, with a contiguous gradient in the backward pass."""
+    return _ContiguousGrad.apply(x)
+
+
+def _heads_local(fn, q, k, v, *args):
+    """``fn(q, k, v, *args)`` (an attention core over (B, S, heads, hd)
+    tensors); under a mesh, as an explicit step on each rank's heads.
+
+    Heads are independent, so each rank runs ``fn`` on its local rows and
+    heads, and DTensor never meets the cores' einsums (the card's torch
+    2.11 cannot place their flattening views). k and v take q's head
+    sharding when their head count allows it (then a rank's query heads
+    are the groups of its kv heads); with one kv head (MQA) they stay
+    whole and their local gradient is a partial sum over the head-sharded
+    dims; otherwise the query heads are gathered too."""
+    if not is_dtensor(q):
+        return fn(q, k, v, *args)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = q.device_mesh
+    rows = [pl if isinstance(pl, Shard) and pl.dim == 0 else Replicate()
+            for pl in q.placements]
+    heads = [i for i, pl in enumerate(q.placements)
+             if isinstance(pl, Shard) and pl.dim == 2]
+    split = math.prod(mesh.size(i) for i in heads)
+    kheads = k.shape[2]
+    if kheads % split == 0:
+        qp = kp = [Shard(2) if i in heads else pl
+                   for i, pl in enumerate(rows)]
+        kgrad = kp
+    elif kheads == 1:
+        qp = [Shard(2) if i in heads else pl for i, pl in enumerate(rows)]
+        kp, kgrad = rows, [Partial() if i in heads else pl
+                           for i, pl in enumerate(rows)]
+    else:
+        qp = kp = kgrad = rows
+    ql = contiguous_grad(q.redistribute(mesh, qp).to_local())
+    kl = contiguous_grad(k.redistribute(mesh, kp).to_local(
+        grad_placements=kgrad))
+    vl = contiguous_grad(v.redistribute(mesh, kp).to_local(
+        grad_placements=kgrad))
+    return DTensor.from_local(fn(ql, kl, vl, *args).contiguous(), mesh, qp)
+
+
 def _write_cache(cache, new, start):
     """``dynamic_update_slice`` of ``new`` (B, Sq, ...) into ``cache``
     (B, S, ...) at per-row ``start`` (B,), each start clamped so that the
@@ -364,6 +500,8 @@ def attention(
     q = (x @ p.wq).reshape(b, sq, num_heads, head_dim)
     k = (x @ p.wk).reshape(b, sq, num_kv_heads, head_dim)
     v = (x @ p.wv).reshape(b, sq, num_kv_heads, head_dim)
+    q = logical(q, "batch", "attn_seq", "heads", None)
+    k = logical(k, "batch", "attn_seq", "kv_heads", None)
     pos2d = positions if positions.dim() == 2 else positions[..., 0]
     if rope_theta > 0:
         q = apply_rope(q, positions, rope_theta, mrope_sections)
@@ -394,11 +532,13 @@ def attention(
     else:
         if sq <= dense_threshold:
             bias = _mask_bias(pos2d[0], pos2d[0], causal, window)
-            out = _sdpa_dense(q, k, v, bias)
+            out = _heads_local(_sdpa_dense, q, k, v, bias)
         else:
-            out = _sdpa_flash(q, k, v, pos2d[0], pos2d[0], causal, window,
+            out = _heads_local(_sdpa_flash, q, k, v, pos2d[0], pos2d[0],
+                               causal, window,
                               flash_q_block, flash_kv_block)
         new_kv = (k, v)
+    out = logical(out, "batch", "attn_seq", "heads", None)
     out = out.reshape(b, sq, num_heads * head_dim)
     return out @ p.wo, new_kv
 
@@ -425,7 +565,30 @@ class Head(nn.Module):
 
 def embed(p, tokens):
     """Token ids -> rows of the table."""
-    return p.table[tokens]
+    if is_dtensor(p.table):
+        return logical(_embed_local(p.table, tokens), "batch", "seq", "embed")
+    return logical(p.table[tokens], "batch", "seq", "embed")
+
+
+def _embed_local(table, tokens):
+    """The lookup under a mesh, as an explicit step on local tensors.
+    DTensor has no lookup for a table sharded on both dims (the
+    ``("tp", "fsdp")`` rule), and the card's torch 2.11 fails to place the
+    ``index_put`` of the lookup's backward. So the table is gathered whole
+    on every rank, each rank looks up its own rows of tokens, and the
+    table's local gradient is declared a partial sum over the dims the
+    tokens are sharded on (each rank saw only its rows)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = table.device_mesh
+    placed = (list(tokens.placements) if is_dtensor(tokens)
+              else [Replicate()] * mesh.ndim)
+    grads = [Partial() if isinstance(pl, Shard) else Replicate()
+             for pl in placed]
+    whole = table.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+        grad_placements=grads)
+    ids = tokens.to_local() if is_dtensor(tokens) else tokens
+    return DTensor.from_local(whole[ids], mesh, placed)
 
 
 def unembed(p_embed, tokens_hidden, head=None):

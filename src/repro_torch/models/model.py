@@ -32,10 +32,23 @@ leaves stay float32. Training keeps float32 masters of the cast leaves
 each period and each RWKV layer in the backward pass
 (``torch.utils.checkpoint``), as ``jax.checkpoint`` wraps each scan step;
 it acts only while a gradient is being recorded, so serving never sees it.
+
+Under a mesh (``training/sharding.py``'s ``shard_model``) each parameter is
+a DTensor placed by ``param_pspec``, and ``gather_keep`` names the mesh
+dims whose placement a parameter keeps inside the forward (the
+tensor-parallel ``model`` axis). Each layer redistributes its own
+parameters to ``Replicate()`` on every other dim (the FSDP all-gather over
+``data``) when it runs, inside the recomputed function, so remat gathers
+them again in the backward pass, and their gradients come back
+reduce-scattered into the stored placements. The forward then runs on
+DTensors, with the logical annotations of ``layers.logical`` at the JAX
+package's sites and plain constants (positions, masks) taken as
+replicated.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -72,6 +85,22 @@ def jax_rank(name: str, p: torch.Tensor) -> int:
     tree: its own ndim plus the leaf's stacking axes (1 under ``blocks``,
     2 under ``periods``)."""
     return p.dim() + len(jax_leaf(name)[1])
+
+
+def jax_shape(model: nn.Module, name: str, p: torch.Tensor) -> tuple:
+    """The shape of parameter ``name``'s leaf in the JAX package's stacked
+    tree: the lengths of its stacking axes (the ``blocks`` list, the
+    ``periods`` list and a period's layer list), then its own shape."""
+    lens, mod = [], model
+    parts = name.split(".")
+    for i, part in enumerate(parts[:-1]):
+        if part.isdigit():
+            if parts[i - 1] != "prefix":
+                lens.append(len(mod))
+            mod = mod[int(part)]
+        else:
+            mod = getattr(mod, part)
+    return tuple(lens) + tuple(p.shape)
 
 
 class Block(nn.Module):
@@ -141,6 +170,8 @@ class Model(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.remat = remat
+        # Set by ``training.sharding.shard_model`` (module docstring).
+        self.gather_keep: Optional[tuple] = None
         self.compute_dtype = (torch.bfloat16 if cfg.dtype == "bfloat16"
                               else torch.float32)
         init = Init(resolve_device(device), generator)
@@ -182,13 +213,47 @@ class Model(nn.Module):
                 p.data = p.data.to(self.compute_dtype)
         return module
 
-    def _step(self, fn, *args):
-        """``fn(*args)``, recomputed in the backward pass when ``remat``
-        is on and a gradient is being recorded for the parameters."""
-        if (self.remat and torch.is_grad_enabled()
+    @contextlib.contextmanager
+    def gathered(self, *modules: nn.Module):
+        """Inside this context, the DTensor parameters of ``modules`` are
+        gathered to ``Replicate()`` on every mesh dim but ``gather_keep``'s
+        and plain tensors mix with DTensors as replicated ones. A no-op on
+        a model of plain tensors."""
+        if self.gather_keep is None:
+            yield
+            return
+        from torch.distributed.tensor import Replicate
+
+        saved = []
+        try:
+            for module in modules:
+                for sub in module.modules():
+                    for name, p in list(sub._parameters.items()):
+                        if not layers.is_dtensor(p):
+                            continue
+                        saved.append((sub, name, p))
+                        sub._parameters[name] = p.redistribute(
+                            p.device_mesh,
+                            [pl if i in self.gather_keep else Replicate()
+                             for i, pl in enumerate(p.placements)])
+            with layers.replicated_constants():
+                yield
+        finally:
+            for sub, name, p in saved:
+                sub._parameters[name] = p
+
+    def _step(self, fn, lp, *args, remat: bool = True):
+        """``fn(lp, *args)`` with layer ``lp``'s parameters gathered,
+        recomputed in the backward pass when ``remat`` is on and a
+        gradient is being recorded for the parameters."""
+        def run(lp, *args):
+            with self.gathered(lp):
+                return fn(lp, *args)
+
+        if (remat and self.remat and torch.is_grad_enabled()
                 and self.embed.table.requires_grad):
-            return checkpoint(fn, *args, use_reentrant=False)
-        return fn(*args)
+            return checkpoint(run, lp, *args, use_reentrant=False)
+        return run(lp, *args)
 
     @property
     def device(self) -> torch.device:
@@ -219,7 +284,8 @@ class Model(nn.Module):
         if p_moe is not None:
             return moe.moe_ffn(p_moe, h, num_experts=cfg.num_experts,
                                top_k=cfg.num_experts_per_tok,
-                               capacity_factor=cfg.capacity_factor)
+                               capacity_factor=cfg.capacity_factor,
+                               dispatch=cfg.moe_dispatch)
         return layers.mlp(p_mlp, h, cfg.mlp_type), self._zero()
 
     def _attn_ffn_block(self, lp, x, positions, window, kv_cache, cache_pos):
@@ -232,7 +298,7 @@ class Model(nn.Module):
         h = layers.rmsnorm(lp.ln2, x, cfg.norm_eps)
         f, aux = self._ffn(getattr(lp, "moe", None), getattr(lp, "mlp", None),
                            h)
-        return x + f, new_kv, aux
+        return layers.logical(x + f, "batch", "seq", "embed"), new_kv, aux
 
     def _rwkv_block(self, lp, x, state):
         cfg = self.cfg
@@ -285,9 +351,8 @@ class Model(nn.Module):
                 args = (lp, x, positions, self._window(i + offset), kvc,
                         cache_pos)
                 # JAX scans (and remats) ``blocks``; ``prefix`` is unrolled.
-                x, new_kv, aux = (
-                    self._attn_ffn_block(*args) if stack == "prefix"
-                    else self._step(self._attn_ffn_block, *args))
+                x, new_kv, aux = self._step(self._attn_ffn_block, *args,
+                                            remat=stack == "blocks")
                 ks.append(new_kv[0])
                 vs.append(new_kv[1])
                 auxs.append(aux)
@@ -413,11 +478,17 @@ class Model(nn.Module):
         tensor of per-row indices.
         """
         cfg = self.cfg
-        x, positions = self._embed_inputs(batch)
-        x, new_cache, aux = self._backbone(x, positions, cache, cache_pos)
-        x = layers.rmsnorm(self.final_norm, x, cfg.norm_eps)
-        logits = layers.unembed(self.embed, x, None if cfg.tie_embeddings
-                                else self.lm_head)
+        top = [getattr(self, n) for n in ("embed", "final_norm", "lm_head",
+                                          "frontend") if hasattr(self, n)]
+        with self.gathered(*top):
+            x, positions = self._embed_inputs(batch)
+            x, new_cache, aux = self._backbone(x, positions, cache,
+                                               cache_pos)
+            x = layers.rmsnorm(self.final_norm, x, cfg.norm_eps)
+            x = layers.logical(x, "batch", "seq", "embed")
+            logits = layers.unembed(self.embed, x, None if cfg.tie_embeddings
+                                    else self.lm_head)
+            logits = layers.logical(logits, "batch", "logits_seq", "vocab")
         return logits, new_cache, aux
 
     def forward_train(self, batch: dict):

@@ -155,4 +155,5 @@ def rwkv_channelmix(p, x, state=None):
     xs = _token_shift(x, last)
     xk = x + (xs - x) * p.mu_k.to(x.dtype)
     h = torch.square(F.relu(xk @ p.wk))
+    h = layers.logical(h, "batch", "mlp_seq", "mlp")
     return h @ p.wv, x[:, -1]

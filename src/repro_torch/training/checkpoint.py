@@ -28,11 +28,23 @@ A bfloat16 leaf is written as JAX writes one (two bytes an element, descr
 and returns it as a bfloat16 tensor. (The JAX package's own ``restore``
 cannot place such a leaf; a train state holds none, its masters are
 float32.)
+
+Over a mesh (a state placed by ``training/sharding.py``, or DTensor
+leaves), every rank calls ``save``: each leaf is gathered on every rank (a
+collective), rank 0 alone writes, and every rank waits for the write
+before it returns, so the files are the bytes an unsharded save writes.
+``AsyncSaver`` gathers on the calling thread and only the write goes to
+the background. ``restore(..., shardings=)`` places each leaf under its
+``NamedSharding`` (a state: under ``(param_shardings,
+opt_state_shardings)``), each rank reading only its block of the
+memory-mapped files: a restore onto another mesh shape or world size is a
+re-placement.
 """
 
 from __future__ import annotations
 
 import hashlib
+import io
 import json
 import os
 import re
@@ -81,17 +93,40 @@ def _unflatten(like, leaves):
     return next(leaves)
 
 
-def _as_tree(tree):
-    """A ``TrainState`` as JAX's train state tree; any other tree as is."""
-    from repro_torch.convert import train_state_to_arrays
+def _sharded(tree) -> bool:
+    """Whether ``tree`` (a ``TrainState`` or a tree) is placed over a
+    mesh."""
+    from repro_torch.models.layers import is_dtensor
     from repro_torch.training.train_step import TrainState
 
-    return train_state_to_arrays(tree) if isinstance(tree, TrainState) \
-        else tree
+    if isinstance(tree, TrainState):
+        return tree.mesh is not None
+    return any(is_dtensor(leaf) for _, leaf in _flatten(tree))
+
+
+def _snapshot(tree) -> tuple:
+    """(leaf paths, host leaves, whether this rank writes): a
+    ``TrainState`` as JAX's train state tree, DTensor leaves gathered (a
+    collective over a mesh, where only rank 0 keeps the host copies and
+    writes)."""
+    from repro_torch.convert import train_state_to_arrays
+    from repro_torch.training import sharding
+    from repro_torch.training.train_step import TrainState
+
+    writer = not _sharded(tree) or torch.distributed.get_rank() == 0
+    if isinstance(tree, TrainState):
+        tree = train_state_to_arrays(tree, keep=writer)
+    flat = _flatten(tree)
+    leaves = []
+    for _, leaf in flat:
+        if isinstance(leaf, torch.Tensor):
+            leaf = sharding.full(leaf).detach().cpu().clone()
+        leaves.append(leaf if writer else None)
+    return ["/".join(p) for p, _ in flat], leaves, writer
 
 
 def _leaf_paths(tree):
-    flat = _flatten(_as_tree(tree))
+    flat = _flatten(tree)
     return ["/".join(p) for p, _ in flat], [leaf for _, leaf in flat]
 
 
@@ -129,34 +164,64 @@ def _write_npy(f, arr: np.ndarray, dtype: str) -> None:
 
 def save(ckpt_dir: str, step: int, tree: Any, *, keep: int = 3,
          extra: Optional[dict] = None) -> str:
-    """Synchronous atomic save. Returns the final directory."""
+    """Synchronous atomic save. Returns the final directory. Over a mesh
+    every rank calls it (module docstring)."""
+    sharded = _sharded(tree)
+    names, leaves, writer = _snapshot(tree)
+    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if writer:
+        _write(ckpt_dir, step, names, leaves, keep, extra)
+    if sharded:
+        torch.distributed.barrier()
+    return final
+
+
+def _records(step: int, names, leaves, extra: Optional[dict]):
+    """(file name, a function that writes the file to a binary file) for
+    each leaf, then for the manifest."""
+    manifest = {"step": step, "leaves": [], "extra": extra or {}}
+    for name, leaf in zip(names, leaves):
+        arr, dtype = _host(leaf)
+        fn = _fname(name)
+        manifest["leaves"].append(
+            {"path": name, "file": fn, "shape": list(arr.shape),
+             "dtype": dtype})
+        yield fn, (lambda f, arr=arr, dtype=dtype: _write_npy(f, arr, dtype))
+    yield "manifest.json", lambda f: f.write(json.dumps(manifest).encode())
+
+
+def _write(ckpt_dir: str, step: int, names, leaves, keep: int,
+           extra: Optional[dict]) -> None:
+    """Write host leaves as the checkpoint of ``step``: to ``.tmp``,
+    fsync'd, renamed; then the retention."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp, exist_ok=True)
-    names, leaves = _leaf_paths(tree)
-    manifest = {"step": step, "leaves": [], "extra": extra or {}}
-    for name, leaf in zip(names, leaves):
-        arr, dtype = _host(leaf)
-        fn = _fname(name)
+    for fn, emit in _records(step, names, leaves, extra):
         with open(os.path.join(tmp, fn), "wb") as f:
-            _write_npy(f, arr, dtype)
+            emit(f)
             f.flush()
             os.fsync(f.fileno())
-        manifest["leaves"].append(
-            {"path": name, "file": fn, "shape": list(arr.shape),
-             "dtype": dtype})
-    mpath = os.path.join(tmp, "manifest.json")
-    with open(mpath, "w") as f:
-        json.dump(manifest, f)
-        f.flush()
-        os.fsync(f.fileno())
     if os.path.exists(final):
         shutil.rmtree(final)
     os.rename(tmp, final)
     _apply_retention(ckpt_dir, keep)
-    return final
+
+
+def encoded(tree: Any, step: int, *, extra: Optional[dict] = None):
+    """Yield (file name, bytes) of every file ``save`` would write for
+    ``tree`` at ``step`` (leaves, then the manifest), one at a time, in
+    memory: a saved checkpoint can be checked against another tree's
+    save without writing it."""
+    names, leaves, writer = _snapshot(tree)
+    if not writer:
+        return
+    for fn, emit in _records(step, names, leaves, extra):
+        buf = io.BytesIO()
+        emit(buf)
+        yield fn, buf.getvalue()
 
 
 class AsyncSaver:
@@ -178,17 +243,17 @@ class AsyncSaver:
 
     def save(self, ckpt_dir: str, step: int, tree: Any, *, keep: int = 3,
              extra: Optional[dict] = None):
-        """Snapshot ``tree`` to host memory now, write it in a thread."""
+        """Snapshot ``tree`` to host memory now (over a mesh: the gathers,
+        on this thread), write it in a thread (rank 0's only)."""
         self.wait()
         # Snapshot to host memory now (so training can mutate buffers).
-        tree = _as_tree(tree)
-        snap = _unflatten(tree, iter(
-            [leaf.detach().cpu().clone() if isinstance(leaf, torch.Tensor)
-             else np.array(leaf) for _, leaf in _flatten(tree)]))
+        names, leaves, writer = _snapshot(tree)
+        if not writer:
+            return
 
         def run():
             try:
-                save(ckpt_dir, step, snap, keep=keep, extra=extra)
+                _write(ckpt_dir, step, names, leaves, keep, extra)
             except Exception as exc:  # re-raised by wait()
                 self._error = exc
 
@@ -234,26 +299,36 @@ def _manifest_tree(d: str, manifest: dict) -> tuple:
     return root[0], OptState(step=opt["step"], mu=opt["mu"], nu=opt["nu"])
 
 
-def restore(ckpt_dir: str, step: int, like: Any) -> Any:
+def restore(ckpt_dir: str, step: int, like: Any,
+            shardings: Optional[Any] = None) -> Any:
     """Restore into the structure of ``like``.
 
     ``like`` is a tree whose leaves have a ``shape`` (arrays, tensors):
     the result has its structure, each leaf a host tensor of the
-    manifest's dtype. Or ``like`` is a ``TrainState``: it is filled in
-    place, leaf by leaf (``convert.load_train_state``), and returned.
+    manifest's dtype, or, placed under the matching ``NamedSharding`` of
+    ``shardings`` (a tree like ``like``), a DTensor of this rank's block.
+    Or ``like`` is a ``TrainState``: it is first placed under
+    ``shardings`` = (``param_shardings``, ``opt_state_shardings``) if
+    given, then filled in place, leaf by leaf (``convert.load_train_state``:
+    a placed state reads each rank's blocks), and returned.
     """
     from repro_torch.convert import load_train_state
+    from repro_torch.training import sharding
     from repro_torch.training.train_step import TrainState
 
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
     if isinstance(like, TrainState):
+        if shardings is not None:
+            sharding.distribute_train_state(like, shardings)
         return load_train_state(like, _manifest_tree(d, manifest))
     by_path = {e["path"]: e for e in manifest["leaves"]}
     names, leaves = _leaf_paths(like)
+    shard_leaves = ([leaf for _, leaf in _flatten(shardings)]
+                    if shardings is not None else [None] * len(leaves))
     out = []
-    for name, leaf in zip(names, leaves):
+    for name, leaf, shard in zip(names, leaves, shard_leaves):
         if name not in by_path:
             raise KeyError(f"checkpoint missing leaf {name!r}")
         entry = by_path[name]
@@ -262,18 +337,29 @@ def restore(ckpt_dir: str, step: int, like: Any) -> Any:
         if tuple(arr.shape) != want:
             raise ValueError(
                 f"leaf {name}: checkpoint shape {tuple(arr.shape)} != {want}")
-        out.append(arr)
-    return _unflatten(like, iter(
-        [a if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a))
-         for a in out]))
+        if shard is not None:
+            out.append(shard.place(arr))
+        else:
+            out.append(arr if isinstance(arr, torch.Tensor)
+                       else torch.from_numpy(np.array(arr)))
+    return _unflatten(like, iter(out))
 
 
-def restore_latest(ckpt_dir: str, like: Any):
+def place_tree(tree: Any, shardings: Any) -> Any:
+    """``tree`` with each leaf placed under the matching ``NamedSharding``
+    of ``shardings`` (a tree of the same structure)."""
+    return _unflatten(tree, iter(
+        [sh.place(leaf) for (_, leaf), (_, sh) in zip(_flatten(tree),
+                                                      _flatten(shardings))]))
+
+
+def restore_latest(ckpt_dir: str, like: Any,
+                   shardings: Optional[Any] = None):
     """(``restore`` of the newest checkpoint, its step), or (None, None)."""
     step = latest_step(ckpt_dir)
     if step is None:
         return None, None
-    return restore(ckpt_dir, step, like), step
+    return restore(ckpt_dir, step, like, shardings), step
 
 
 def _apply_retention(ckpt_dir: str, keep: int):

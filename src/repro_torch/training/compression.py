@@ -10,23 +10,34 @@ next (Seide et al.). Equal to the JAX package bit for bit on the CPU:
 
 Each function takes one leaf of the JAX package's tree. The int8 scale is
 the leaf's largest magnitude, so a stacked leaf (``blocks``, ``periods``)
-is one tensor here too: ``train_step`` stacks a layer group before it
-compresses it.
+shares one scale: ``train_step`` takes it over the whole group (and over
+every rank's blocks under a mesh) and passes it in.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
-def compress_decompress(g: torch.Tensor, method: str = "bf16") -> torch.Tensor:
-    """Round-trip a gradient leaf through the compressed representation."""
+def int8_scale(g: torch.Tensor) -> torch.Tensor:
+    """The int8 step of a leaf: its largest magnitude over 127."""
+    return torch.clamp(torch.max(torch.abs(g)), min=1e-12) / 127.0
+
+
+def compress_decompress(g: torch.Tensor, method: str = "bf16", *,
+                        scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Round-trip a gradient leaf through the compressed representation.
+    ``scale`` is the int8 step when ``g`` is a block of its leaf (default:
+    :func:`int8_scale` of ``g``)."""
     if method == "none" or g.dim() == 0:
         return g
     if method == "bf16":
         return g.to(torch.bfloat16).to(torch.float32)
     if method == "int8":
-        scale = torch.clamp(torch.max(torch.abs(g)), min=1e-12) / 127.0
+        if scale is None:
+            scale = int8_scale(g)
         q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
         return q.to(torch.float32) * scale
     raise ValueError(f"unknown compression {method!r}")

@@ -7,6 +7,10 @@ list of parameters it updates; the step is an int32 tensor on the
 parameters' device, and the schedule and bias corrections are float32
 tensors computed from it there, so an update never waits on the host.
 
+Over a mesh the parameters, gradients and moments are DTensors in the
+same placements: the global norm sums each whole leaf (a collective), and
+the elementwise update runs on each rank's blocks with plain scalars.
+
 Weight decay applies to matrices only, by the rank of each parameter's leaf
 in the JAX package's stacked tree: a per-layer norm scale under ``blocks``
 is a (L, d) leaf there, so it is decayed, while ``final_norm``'s is not.
@@ -20,6 +24,8 @@ import math
 from typing import List, NamedTuple, Optional, Sequence
 
 import torch
+
+from repro_torch.training.sharding import full, local
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,8 +74,10 @@ def lr_at(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of every element's square, in float32."""
-    sums = [torch.sum(torch.square(x.to(torch.float32))) for x in tensors]
+    """sqrt of the sum of every element's square, in float32 (of every
+    rank's blocks, for DTensors)."""
+    sums = [full(torch.sum(torch.square(x.to(torch.float32))))
+            for x in tensors]
     return torch.sqrt(torch.sum(torch.stack(sums)))
 
 
@@ -100,6 +108,7 @@ def adamw_update(cfg: OptimizerConfig, params: Sequence[torch.Tensor],
     b1c = 1 - torch.pow(cfg.b1, stepf)
     b2c = 1 - torch.pow(cfg.b2, stepf)
     for p, g, m, v, rank in zip(params, grads, state.mu, state.nu, ranks):
+        p, g, m, v = local(p), local(g), local(m), local(v)
         g = g.to(torch.float32) * scale
         m.mul_(cfg.b1).add_(g * (1 - cfg.b1))
         v.mul_(cfg.b2).add_(torch.square(g) * (1 - cfg.b2))

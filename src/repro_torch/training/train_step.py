@@ -1,5 +1,5 @@
 """The training step: loss, gradients, update, with microbatching, gradient
-compression and remat, on one device.
+compression and remat, on one device or over a mesh.
 
 The port of ``repro/training/train_step.py``. The JAX package keeps float32
 parameters and casts the leaves of rank above 1 to bfloat16 on every
@@ -16,21 +16,37 @@ Microbatches are contiguous row blocks of the batch (JAX's
 ``torch.autograd.grad`` and are summed into float32 buffers, as JAX's scan
 sums them, never into a bfloat16 ``.grad``. The metrics (``loss``,
 ``grad_norm``, ``lr``, and ``aux`` without microbatching) stay tensors on
-the device. ``TrainConfig`` has no ``pod_axis``: that belongs to the
-sharded step.
+the device.
+
+The same step runs on a state placed over a ``DeviceMesh``
+(``training/sharding.py``'s ``distribute_train_state`` or ``shard_model``
+before ``init_train_state``), with a batch of DTensors sharded over the
+batch axes (``sharding.shard_batch``), as JAX jits the same step with
+``in_shardings``. The gradients then come back as DTensors in the stored
+placements; the global norm and the int8 scale are taken over each whole
+leaf (a collective), never over a rank's block, and the elementwise AdamW
+update runs on each rank's blocks. Microbatch i is the rows
+[i*B/m, (i+1)*B/m) of the global batch, sharded over the batch axes again,
+never a slice of each rank's rows: with MoE that would change which tokens
+compete for capacity. The metrics come back as plain tensors.
+``pod_axis`` names the mesh's pure data-parallel axis, as in the JAX
+package; the gradient reduction over it is part of the stored placements'
+reduce-scatter.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List
+from typing import Callable, List, Optional
 
 import torch
 
 from repro_torch.models import Model
+from repro_torch.models.layers import is_dtensor
 from repro_torch.models.model import jax_leaf, jax_rank
 from repro_torch.training import optimizer as opt_mod
-from repro_torch.training.compression import compress_decompress
+from repro_torch.training import sharding
+from repro_torch.training.compression import compress_decompress, int8_scale
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,7 +56,8 @@ class TrainConfig:
     optimizer: opt_mod.OptimizerConfig = opt_mod.OptimizerConfig()
     microbatches: int = 1  # grad accumulation steps per update
     z_loss: float = 1e-4
-    grad_compression: str = "none"  # none | bf16 | int8
+    grad_compression: str = "none"  # none | bf16 | int8 (cross-pod reduce)
+    pod_axis: Optional[str] = None  # set when a pod axis exists in the mesh
 
 
 @dataclasses.dataclass
@@ -60,15 +77,22 @@ class TrainState:
 
     @property
     def device(self) -> torch.device:
-        """The device that holds the state."""
+        """The device that holds the state (this rank's, under a mesh)."""
         return self.model.device
 
+    @property
+    def mesh(self):
+        """The ``DeviceMesh`` the state is placed over, or None."""
+        p = self.params[0]
+        return p.device_mesh if is_dtensor(p) else None
+
     def refresh(self) -> None:
-        """Copy the masters into the lower-precision compute copies."""
+        """Copy the masters into the lower-precision compute copies (each
+        rank its own blocks)."""
         with torch.no_grad():
             for p, m in zip(self.params, self.master):
                 if p.dtype != m.dtype:
-                    p.copy_(m)
+                    sharding.local(p).copy_(sharding.local(m))
 
 
 def init_train_state(model: Model) -> TrainState:
@@ -85,18 +109,53 @@ def init_train_state(model: Model) -> TrainState:
                       opt=opt_mod.init_opt_state(master))
 
 
-def cross_entropy(logits, labels, mask=None, z_loss: float = 0.0):
-    """Token-mean CE (+ z-loss). logits (B,S,V) f32/bf16, labels (B,S)."""
+def _token_nll(logits, labels, z_loss: float):
+    """(B, S) per-token CE (+ z-loss) in float32."""
     logits = logits.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = lse - ll
     if z_loss:
         nll = nll + z_loss * torch.square(lse)
+    return nll
+
+
+def _token_nll_local(logits, labels, z_loss: float):
+    """:func:`_token_nll` of DTensor logits, as an explicit step on local
+    tensors: the vocab axis is gathered first (the label gather over a
+    vocab-sharded DTensor is a masked partial that fails for (B, S, V)
+    inputs, and the card's torch 2.11 fails to place the gather's
+    backward), then each rank takes its own rows. Returns a DTensor placed
+    as the rows are."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh, v = logits.device_mesh, logits.dim() - 1
+    rows = [Replicate() if pl.is_partial() or (isinstance(pl, Shard)
+                                               and pl.dim == v) else pl
+            for pl in logits.placements]
+    local = logits.redistribute(mesh, rows).to_local()
+    ids = labels.to_local() if is_dtensor(labels) else labels
+    return DTensor.from_local(_token_nll(local, ids, z_loss), mesh, rows)
+
+
+def cross_entropy(logits, labels, mask=None, z_loss: float = 0.0):
+    """Token-mean CE (+ z-loss). logits (B,S,V) f32/bf16, labels (B,S).
+    Under a mesh the result is a replicated DTensor scalar."""
+    if not is_dtensor(logits):
+        nll = _token_nll(logits, labels, z_loss)
+    else:
+        nll = _token_nll_local(logits, labels, z_loss)
     if mask is None:
-        return torch.mean(nll)
-    mask = mask.to(torch.float32)
-    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+        loss = torch.mean(nll)
+    else:
+        mask = mask.to(torch.float32)
+        loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    if is_dtensor(loss):
+        from torch.distributed.tensor import Replicate
+
+        loss = loss.redistribute(loss.device_mesh,
+                                 [Replicate()] * loss.device_mesh.ndim)
+    return loss
 
 
 def make_loss_fn(model: Model, tcfg: TrainConfig) -> Callable:
@@ -116,23 +175,47 @@ def make_loss_fn(model: Model, tcfg: TrainConfig) -> Callable:
 
 
 def _split_microbatches(batch: dict, n: int) -> list:
-    """``n`` contiguous row blocks of every array of ``batch``."""
+    """``n`` contiguous row blocks of every array of ``batch``; a DTensor's
+    blocks are rows of its global value, each placed as it was."""
+    split = {k: sharding.full(v) for k, v in batch.items()}
     split = {k: v.reshape(n, v.shape[0] // n, *v.shape[1:])
-             for k, v in batch.items()}
-    return [{k: v[i] for k, v in split.items()} for i in range(n)]
+             for k, v in split.items()}
+    return [{k: (sharding.place(v[i], batch[k].device_mesh,
+                                batch[k].placements)
+                 if is_dtensor(batch[k]) else v[i])
+             for k, v in split.items()} for i in range(n)]
+
+
+def _local_map(fn, g):
+    """``fn`` over a DTensor's block (placed as ``g`` was), or over ``g``."""
+    if not is_dtensor(g):
+        return fn(g)
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(fn(g.to_local()), g.device_mesh, g.placements,
+                              shape=g.shape, stride=g.stride())
 
 
 def _compress(state: TrainState, grads: list, method: str) -> list:
     """``compress_decompress`` over JAX's leaves: the parameters of one
-    stacked leaf are stacked, compressed together and taken apart."""
+    stacked leaf share one int8 scale, the largest magnitude over the whole
+    leaf (over every rank's blocks under a mesh), as the JAX package's
+    scale of the stacked leaf; the values are quantized elementwise."""
     groups = {}
     for i, name in enumerate(state.names):
         groups.setdefault(jax_leaf(name)[0], []).append(i)
     out = list(grads)
     for idx in groups.values():
-        leaf = torch.stack([grads[i].to(torch.float32) for i in idx])
-        for i, g in zip(idx, compress_decompress(leaf, method).unbind(0)):
-            out[i] = g
+        if state.ranks[idx[0]] == 0:  # a scalar leaf passes as it is
+            continue
+        scale = None
+        if method == "int8":
+            scale = int8_scale(torch.stack([sharding.full(
+                torch.max(torch.abs(grads[i].to(torch.float32))))
+                for i in idx]))
+        for i in idx:
+            out[i] = _local_map(lambda g: compress_decompress(
+                g.to(torch.float32), method, scale=scale), grads[i])
     return out
 
 
@@ -146,23 +229,27 @@ def make_train_step(model: Model, tcfg: TrainConfig) -> Callable:
                                    materialize_grads=True)
 
     def train_step(state: TrainState, batch: dict):
+        with sharding.mesh_ops(state):
+            return step(state, batch)
+
+    def step(state: TrainState, batch: dict):
         n = tcfg.microbatches
         if n > 1:
-            gsum = [torch.zeros(p.shape, dtype=torch.float32,
-                                device=p.device) for p in state.params]
+            gsum = [torch.zeros_like(p, dtype=torch.float32)
+                    for p in state.params]
             lsum = torch.zeros((), dtype=torch.float32, device=state.device)
             for mb in _split_microbatches(batch, n):
                 loss, _ = loss_fn(mb)
                 for a, g in zip(gsum, grads_of(state, loss)):
                     a.add_(g)
-                lsum = lsum + loss.detach()
+                lsum = lsum + sharding.full(loss.detach())
             grads = [g.div_(n) for g in gsum]
             loss = lsum / n
             extra = {}
         else:
             loss, extra = loss_fn(batch)
             grads = grads_of(state, loss)
-            loss = loss.detach()
+            loss = sharding.full(loss.detach())
         if tcfg.grad_compression != "none":
             grads = _compress(state, grads, tcfg.grad_compression)
         with torch.no_grad():
@@ -171,8 +258,8 @@ def make_train_step(model: Model, tcfg: TrainConfig) -> Callable:
         del grads
         state.refresh()
         metrics = dict(metrics, loss=loss)
-        metrics.update({k: v.detach() for k, v in extra.items()
-                        if k != "ce"})
+        metrics.update({k: sharding.full(v.detach())
+                        for k, v in extra.items() if k != "ce"})
         return state, metrics
 
     return train_step
@@ -183,8 +270,8 @@ def make_eval_step(model: Model, tcfg: TrainConfig) -> Callable:
     loss_fn = make_loss_fn(model, tcfg)
 
     def eval_step(batch):
-        with torch.no_grad():
+        with torch.no_grad(), sharding.mesh_ops(model):
             loss, _ = loss_fn(batch)
-        return loss
+        return sharding.full(loss)
 
     return eval_step

@@ -968,3 +968,74 @@ def test_cuda_remat_on_equals_off_bitwise(cuda_device, no_tf32, arch, over):
         out.append((loss, torch.autograd.grad(loss, st.params)))
     assert torch.equal(out[0][0], out[1][0])
     assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_step_on_one_nccl_rank_is_bitwise(cuda_device,
+                                                       tmp_path):
+    """The train step on a state distributed over a one-rank (1, 1) mesh
+    (NCCL) equals the plain step bit for bit: every collective is the
+    identity there. bf16 with float32 masters, remat, 2 microbatches."""
+    from repro_torch import configs
+    from repro_torch.core import distributed as tdist
+    from repro_torch.training import data as data_mod
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training import sharding
+    from repro_torch.training import train_step as ts
+
+    cfg = configs.get_smoke_config("granite-34b")  # bf16
+    tcfg = ts.TrainConfig(optimizer=opt_mod.OptimizerConfig(
+        warmup_steps=0, total_steps=10), microbatches=2)
+    batches = [data_mod.bigram_batch(i, 4, 64, cfg.vocab_size)
+               for i in range(2)]
+    plan = [("a", "plain_vs_sharded", dict(
+        cfg=cfg, tcfg=tcfg, seed=0, batches=batches,
+        axes=("data", "model"), remat=True))]
+    got = tdist.spawn_mesh(
+        sharding.run_plan, 1, backend="nccl",
+        init_method=f"file://{tmp_path}/store", timeout=60,
+        join_timeout=240, device=cuda_device, args=(plan,))[0]["a"]
+    assert got["loss_equal"] and got["norm_equal"], got
+    assert got["master_equal"], got["master_max_diff"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deterministic", [True, False])
+def test_cuda_moe_forward_backward_replays_bitwise(cuda_device, no_tf32,
+                                                   monkeypatch,
+                                                   deterministic):
+    """olmoe smoke's MoE layer, forward and backward, twice on the card:
+    the same output and gradients bit for bit, with and without
+    ``torch.use_deterministic_algorithms`` (the combine sums a token's k
+    contributions in a fixed order, never by atomics)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import Model, moe
+
+    cfg = dataclasses.replace(configs.get_smoke_config("olmoe-1b-7b"),
+                              dtype="float32")
+    layer = Model(cfg, device=cuda_device,
+                  generator=torch.Generator(cuda_device).manual_seed(0)
+                  ).blocks[0].moe
+    layer.requires_grad_(True)
+    x0 = torch.randn(4, 64, cfg.d_model, device=cuda_device,
+                     generator=torch.Generator(cuda_device).manual_seed(1))
+    if deterministic:  # cuBLAS needs a fixed workspace to be deterministic
+        monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    old = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(deterministic)
+    try:
+        runs = []
+        for _ in range(2):
+            x = x0.clone().requires_grad_(True)
+            out, aux = moe.moe_ffn(layer, x, num_experts=cfg.num_experts,
+                                   top_k=cfg.num_experts_per_tok,
+                                   capacity_factor=cfg.capacity_factor)
+            loss = (out * out).sum() + aux
+            grads = torch.autograd.grad(loss, [x, *layer.parameters()])
+            runs.append([out.detach(), *grads])
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(old)
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
