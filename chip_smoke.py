@@ -36,8 +36,9 @@ Phases, each of which raises (exit code 1) on a failed check:
   6. kernels  — each kernel against its plain version on the same inputs,
                 at the shapes the paths gave it, timed with CUDA events
                 beside its bound (the larger of bytes over 3.35 TB/s and
-                fp32 operations over 67 TFLOP/s, the H100 SXM peaks), with
-                the launch shape each ran at;
+                fp32 operations over 67 TFLOP/s, the H100 SXM peaks; both
+                counts from ``repro_torch.launch.roofline.kernel_cost``),
+                with the launch shape each ran at;
   tuning      — the launch-shape table (``repro_torch.core.tuning``): the
                 committed table validates; for each registered kernel at a
                 moderate shape, every admitted lattice point's output equals
@@ -91,7 +92,7 @@ Phases, each of which raises (exit code 1) on a failed check:
                 guarantee; peak device memory must stay under 70 GiB. Then
                 the packed lower-bound kernel's row of phase 6;
   8. disk     — the paper's disk path at N = 2**disk_log2_n (default
-                2**min(log2_n, 22): the phase writes over 4.5 times its
+                2**min(log2_n, 21): the phase writes over 4.5 times its
                 raw bytes, and prints what it wrote; the H100 hosts it runs
                 on stop a command past 45 GiB of disk writes, and the shard
                 phase writes a 12.7 GiB checkpoint). Phase 4's first N series, made
@@ -152,7 +153,9 @@ Phases, each of which raises (exit code 1) on a failed check:
                 with warmup 2 of 10 steps: one warm-up step and 8 timed
                 ones (host clock around a synchronised step), the median
                 step and tokens/s beside the FLOP bound (remat's recompute
-                counted, dense attention included, at 989 TFLOP/s), the
+                counted, less the MLP down-projection's, which the
+                recompute's early stop skips; dense attention included; at
+                989 TFLOP/s), the
                 optimizer update and bf16 refresh by CUDA events beside
                 its byte bound (30 B a parameter at 3.35 TB/s), every
                 step's loss and grad norm (finite), the peak (under 70
@@ -167,6 +170,26 @@ Phases, each of which raises (exit code 1) on a failed check:
                 moments and step bitwise, and one such step traced by
                 ``torch.profiler``. It prints a ``{"train": ...}``
                 line before the kernels line. Training runs no ParIS+
+                kernel: its launch counts are read and are all 0;
+  dryrun      — the launch tools (``repro_torch.launch``: ``specs``,
+                ``dryrun``, ``roofline``), in a child process of their own
+                (the fake process group of 512 ranks never touches this
+                one): (a) the train phase's step — granite-34b at full
+                width, 4 layers, B 4 x S 2048, 2 microbatches
+                (``microbatch_tokens_per_device`` 4096), bf16 with float32
+                masters, remat — built by ``specs.build_cell`` on a (1, 1)
+                mesh and traced once on fake CUDA tensors: its counted
+                FLOPs within 1% of the train phase's ``train_flops``, its
+                traced peak beside the measured one (within 25%; PERF.md
+                states the prediction), its compute and memory terms
+                beside the measured step; (b) the paris ``search`` and
+                ``build`` cells on the (16, 16) mesh, with their terms and
+                the host reads counted once. Production LM cells trace for
+                minutes and run alone (``python -m
+                repro_torch.launch.dryrun``). It prints a ``{"dryrun":
+                ...}`` line before the kernels line, with the host cost of
+                a kernel call through ``torch.ops.repro_torch`` and
+                through its wrapper (timed after phase 6). It launches no
                 kernel: its launch counts are read and are all 0;
   shard       — sharded training over a ("data", "model") ``DeviceMesh``
                 (``repro_torch.training.sharding``): (a) one NCCL rank on a
@@ -199,14 +222,14 @@ Phases, each of which raises (exit code 1) on a failed check:
                 this phase is a multi-card one. Its launch counts are read
                 and are all 0.
 
-Phases 4, 5, classify, serve, mesh, 7, 8, lm, train and shard each drive a path
+Phases 4, 5, classify, serve, mesh, 7, 8, lm, train, dryrun and shard each drive a path
 with every launch count set to 0 just before and read just after; each
 kernel of a path must have launched on it, and a kernel's ``launches`` are
 its counts summed over those paths. Phase 2 prints the build's nvcc seconds and fails
-if any kernel instantiation spills registers. The last nine lines of
+if any kernel instantiation spills registers. The last ten lines of
 standard output are the tuning phase's JSON object, the serve phase's, the
-mesh phase's, the lm phase's, the train phase's, the shard phase's, the
-kernels' JSON object,
+mesh phase's, the lm phase's, the train phase's, the dryrun phase's, the
+shard phase's, the kernels' JSON object,
 the ``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
 ...}``.
 It imports no JAX: the port is the package ``repro_torch`` under ``src/``.
@@ -226,9 +249,6 @@ import subprocess
 import sys
 import tempfile
 import time
-
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-FP32_OPS_PER_S = 67e12  # H100 SXM, fp32 outside the tensor cores
 
 SRC = pathlib.Path(__file__).resolve().parent / "src"
 KERNEL_ROWS = {  # name -> (source, TPU kernel it replaces)
@@ -258,6 +278,7 @@ PATH_KERNELS = {
              "euclid_sq"),
     "lm": ("paa_isax", "lower_bound_sq_batch", "euclid_sq"),
     "train": (),  # LM training runs no ParIS+ kernel
+    "dryrun": (),  # nor does the dry-run: it traces fake tensors
     "shard": (),  # nor does sharded training
 }
 # Each kernel's name in the launch-shape registry (euclid_min keeps a fixed
@@ -275,7 +296,9 @@ APPEND_BATCH = 1 << 20  # series per live append
 # hosts it runs on stop a command whose disk writes pass 45 GiB, deleted
 # files included: 2^24 series (16 GiB of raw) do not fit, and 2^23 (37
 # GiB written) leaves no room for the shard phase's 12.7 GiB checkpoint.
-DISK_LOG2_N_MAX = 22
+# 2^21 (9.3 GiB written, about 30 s) keeps the script within 10 minutes
+# with the dryrun phase; --disk-log2-n 22 runs 2^22 series.
+DISK_LOG2_N_MAX = 21
 
 
 class CheckFailed(AssertionError):
@@ -311,10 +334,11 @@ def time_ms(fn, iters: int) -> float:
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple:
     """(the least time in ms for these bytes and fp32 operations, which of
-    the two binds)."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    the two binds), at the H100 peaks of ``repro_torch.launch.roofline``."""
+    from repro_torch.launch import roofline
+
+    t, by = roofline.bound_seconds(n_bytes, n_ops)
+    return t * 1e3, by
 
 
 def launch_shape(name: str, q: int, n: int, dev) -> dict:
@@ -327,9 +351,11 @@ def launch_shape(name: str, q: int, n: int, dev) -> dict:
     return tuning.resolve_blocks(TUNED_AS[name], q=q, n=n, device=dev)
 
 
-def kernel_row(name, err, ms, plain_ms, n_bytes, n_ops, shape) -> dict:
+def kernel_row(name, err, ms, plain_ms, cost, shape) -> dict:
     """One kernel's entry of the JSON line; ``launches`` is filled in later.
-    ``shape`` is the launch shape it was timed at."""
+    ``cost`` is ``roofline.kernel_cost``'s bytes and operations at the
+    timed call, ``shape`` the launch shape it was timed at."""
+    n_bytes, n_ops = cost["bytes"], cost["ops"]
     b_ms, b_by = bound_ms(n_bytes, n_ops)
     src, replaces = KERNEL_ROWS[name]
     log(f"[kernel] {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms); bytes "
@@ -846,6 +872,7 @@ def phase_kernels(full: dict) -> list:
     from repro_torch.core import isax
     from repro_torch.core.search import _smallest, select_len
     from repro_torch.kernels import ops
+    from repro_torch.launch.roofline import kernel_cost
 
     index, qz = full["index"], full["qz"]
     dev = index.device
@@ -868,8 +895,7 @@ def phase_kernels(full: dict) -> list:
         time_ms(lambda: ops.paa_isax(index.raw, bp, w, normalize=False), 10),
         time_ms(lambda: ops.paa_isax(index.raw, bp, w, normalize=False,
                                      impl="ref"), 2),
-        n_series * n * 4 + bp.numel() * 4 + n_series * w * 5,
-        n_series * n + n_series * w * 9,
+        kernel_cost("paa_isax", b=n_series, n=n, w=w, n_bp=bp.numel()),
         launch_shape("paa_isax", 1, n_series, dev))
 
     # lower_bound_sq_batch: the engine's (Q, N) pass.
@@ -885,8 +911,8 @@ def phase_kernels(full: dict) -> list:
         time_ms(lambda: ops.lower_bound_sq_batch(qps, index.sax, bpp, n), 10),
         time_ms(lambda: ops.lower_bound_sq_batch(qps, index.sax, bpp, n,
                                                  impl="ref"), 2),
-        n_q * w * 4 + index.sax.numel() + bpp.numel() * 4 + n_q * n_series * 4,
-        n_q * n_series * (6 * w + 1),
+        kernel_cost("lower_bound_sq_batch", q=n_q, n_rows=n_series, w=w,
+                    n_bp=bpp.numel()),
         launch_shape("lower_bound_sq_batch", n_q, n_series, dev))
 
     # The engine's candidate selection between the two kernels: not a
@@ -913,8 +939,8 @@ def phase_kernels(full: dict) -> list:
         time_ms(lambda: ops.euclid_sq_gather(qz, index.raw, pos), 50),
         time_ms(lambda: ops.euclid_sq_gather(qz, index.raw, pos,
                                              impl="ref"), 5),
-        uniq * n * 4 + qz.numel() * 4 + pos.numel() * 4 + pos.numel() * 4,
-        pos.numel() * 3 * n, launch_shape("euclid_sq", n_q, rs, dev))
+        kernel_cost("euclid_sq", q=n_q, r=rs, n=n, rows_read=uniq),
+        launch_shape("euclid_sq", n_q, rs, dev))
     del pos, d_k, d_p
 
     # lower_bound_sq: one query against all N rows, as the baselines call
@@ -932,9 +958,9 @@ def phase_kernels(full: dict) -> list:
         time_ms(lambda: ops.lower_bound_sq(qp1, index.sax, bpp, n), 50),
         time_ms(lambda: ops.lower_bound_sq(qp1, index.sax, bpp, n,
                                            impl="ref"), 3),
-        index.sax.numel() + bpp.numel() * 4 + w * 4 + n_series * 4,
-        n_series * (6 * w + 1), launch_shape("lower_bound_sq", 1, n_series,
-                                             dev))
+        kernel_cost("lower_bound_sq", n_rows=n_series, w=w,
+                    n_bp=bpp.numel()),
+        launch_shape("lower_bound_sq", 1, n_series, dev))
 
     # euclid_min: one query's brute-force scan of the raw rows.
     q1 = qz[0].contiguous()
@@ -951,7 +977,7 @@ def phase_kernels(full: dict) -> list:
     row("euclid_min", err,
         time_ms(lambda: ops.euclid_min(q1, index.raw), 10),
         time_ms(lambda: ops.euclid_min(q1, index.raw, impl="ref"), 1),
-        n_series * n * 4 + n * 4 + 8, n_series * 3 * n,
+        kernel_cost("euclid_min", b=n_series, n=n),
         launch_shape("euclid_min", 1, n_series, dev))
     return rows
 
@@ -1796,6 +1822,7 @@ def phase_packed(full: dict) -> tuple:
                                          knn_batch_packed_tiered,
                                          pack_components, packed_seed)
     from repro_torch.kernels import ops
+    from repro_torch.launch.roofline import kernel_cost
 
     args, queries, qz = full["args"], full["queries"], full["qz"]
     d1, p1 = full["d"], full["p"]
@@ -1884,9 +1911,9 @@ def phase_packed(full: dict) -> tuple:
     row = kernel_row(
         "lower_bound_sq_multi", err, time_ms(multi, 10),
         time_ms(lambda: multi("ref"), 2),
-        n_q * w * 4 + packed.sax.numel() + packed.block_len.numel() * 4
-        + bpp.numel() * 4 + n_q * n_pad * 4,
-        n_q * n_series * (6 * w + 1),
+        kernel_cost("lower_bound_sq_multi", q=n_q, n_pad=n_pad, w=w,
+                    n_bp=bpp.numel(), blocks=packed.block_len.numel(),
+                    real_rows=n_series),
         {**launch_shape("lower_bound_sq_multi", n_q, n_pad, dev),
          "block_n": packed.block})
     return counts, row
@@ -2268,7 +2295,6 @@ LM_BATCH, LM_STEPS, LM_PROMPT = 16, 16, 16  # sequences, decode steps, prompt
 LM_K, LM_LAM, LM_ROUND = 8, 0.3, 512  # the example's k, lam and round size
 LM_SLOTS, LM_MAX_LEN, LM_REQUESTS, LM_MAX_NEW = 8, 256, 32, 32
 LM_TOL = 1e-3  # (d): logits within 1e-3 of the largest absolute logit
-BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores, NVIDIA data sheet
 
 
 def lm_close(got, want, what: str) -> float:
@@ -2298,6 +2324,7 @@ def phase_lm(args, dev) -> tuple:
     from repro_torch.core import build_index, isax
     from repro_torch.examples import retrieval_serve as rs
     from repro_torch.kernels import ops
+    from repro_torch.launch import roofline
     from repro_torch.models import Model
     from repro_torch.serving import IngestingRouter
     from repro_torch.serving.batcher import Request, SlotBatcher
@@ -2329,7 +2356,7 @@ def phase_lm(args, dev) -> tuple:
     (vecs, values), t_ds = timed(lambda: rs.datastore(
         model, corpus["tokens"], corpus["labels"], chunk=LM_CHUNK))
     n_tok = rows * seq
-    ds_bound = 2 * n_params * n_tok / BF16_OPS_PER_S
+    ds_bound = 2 * n_params * n_tok / roofline.BF16_OPS_PER_S
     expect(torch.isfinite(vecs).all(), "lm (a): non-finite datastore logits")
     index, t_build = timed(lambda: build_index(vecs, segments=16,
                                                device=dev))
@@ -2402,7 +2429,7 @@ def phase_lm(args, dev) -> tuple:
     fig["serve"] = dict(
         sequences=LM_BATCH, steps=LM_STEPS, k=LM_K, round_size=LM_ROUND,
         wall_s=t_gen, prefill_ms=ms("prefill"), decode_ms=ms("decode"),
-        decode_bound_ms=w_bytes / HBM_BYTES_PER_S * 1e3,
+        decode_bound_ms=w_bytes / roofline.HBM_BYTES_PER_S * 1e3,
         retrieve_ms=ms("retrieve"), mix_ms=ms("mix"), append_ms=ms("append"),
         compaction_ms=ms("compact"), compactions=compactions,
         oracle_max_rel=checked["max_rel"], router=router)
@@ -2722,14 +2749,19 @@ ADAM_BYTES_PER_PARAM = 30  # read master, grad, mu, nu (4 each); write
 # master, mu, nu (4 each) and the bf16 compute copy (2)
 
 
-def train_flops(cfg, n_block_mm: int, n_head: int, tokens: int) -> float:
+def train_flops(cfg, n_block_mm: int, n_head: int, tokens: int,
+                n_down: int = 0) -> float:
     """FLOPs of one remat training step: 8 a parameter a token in the
     blocks' matmuls (forward, recompute, backward), 6 in the head's, plus
     the dense attention's two (S, S) products, 4 passes of 4 B S^2 H hd
-    each (forward, recompute, two backward) a layer."""
+    each (forward, recompute, two backward) a layer. Less 2 a parameter a
+    token of the ``n_down`` MLP down-projection parameters: a block's
+    recompute stops once the tensors its backward saved are back
+    (``torch.utils.checkpoint``'s early stop), and the down-projection's
+    output is saved by nothing, so it runs twice, not three times."""
     b, s = TRAIN_BATCH, TRAIN_SEQ
     attn = 16 * cfg.num_layers * b * s * s * cfg.num_heads * cfg.head_dim
-    return tokens * (8 * n_block_mm + 6 * n_head) + attn
+    return tokens * (8 * n_block_mm + 6 * n_head - 2 * n_down) + attn
 
 
 def phase_train(args, dev) -> tuple:
@@ -2747,6 +2779,7 @@ def phase_train(args, dev) -> tuple:
 
     from repro_torch import configs
     from repro_torch.kernels import ops
+    from repro_torch.launch import roofline
     from repro_torch.models import Model
     from repro_torch.training import data as data_mod
     from repro_torch.training import optimizer as opt_mod
@@ -2770,8 +2803,10 @@ def phase_train(args, dev) -> tuple:
               if p.dtype != torch.float32)
         + 12 * n_params) / 2**30
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    flops = train_flops(cfg, n_block_mm, n_head, tokens)
-    bound_s = flops / BF16_OPS_PER_S
+    n_down = sum(p.numel() for n, p in zip(state.names, state.params)
+                 if n.startswith("blocks.") and n.endswith(".mlp.wo"))
+    flops = train_flops(cfg, n_block_mm, n_head, tokens, n_down)
+    bound_s = flops / roofline.BF16_OPS_PER_S
     log(f"[train] (a) {TRAIN_ARCH} at full width, {TRAIN_LAYERS} of "
         f"{configs.get_config(TRAIN_ARCH).num_layers} layers, {cfg.dtype} "
         f"with float32 masters, remat: {n_params / 1e9:.3f} B parameters; "
@@ -2817,7 +2852,7 @@ def phase_train(args, dev) -> tuple:
         tcfg.optimizer, state.master, grads, state.opt, state.ranks),
         state.refresh()), TRAIN_OPT_ITERS)
     opt_bytes = ADAM_BYTES_PER_PARAM * n_params
-    opt_bound_ms = opt_bytes / HBM_BYTES_PER_S * 1e3
+    opt_bound_ms = opt_bytes / roofline.HBM_BYTES_PER_S * 1e3
     peak = torch.cuda.max_memory_allocated() / 2**30
     fig = dict(
         arch=TRAIN_ARCH, layers=TRAIN_LAYERS, params=n_params,
@@ -2965,6 +3000,156 @@ def train_lm_check(args, dev) -> dict:
         return res
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+DRYRUN_TIMEOUT_S = 300  # the child process's limit
+DRYRUN_FLOP_RTOL = 0.01  # (a): counted FLOPs within 1% of train_flops
+# (a): the traced peak against the train phase's measured one. PERF.md
+# states the prediction (within 10%); this bound only catches nonsense.
+DRYRUN_PEAK_RTOL = 0.25
+OVERHEAD_CALLS = 2000  # calls a wrapper's host cost is timed over
+
+
+def op_overhead(dev) -> dict:
+    """Host microseconds a call of ``euclid_sq_gather`` (one query, 64
+    rows of 256: the launch dominates) through ``ops.euclid_sq_gather``
+    (the port's entry: device rule, casts, then the operator), through
+    ``torch.ops.repro_torch.euclid_sq_gather`` directly, and through the
+    ``*_cuda`` wrapper, timed in turns over ``OVERHEAD_CALLS`` calls each."""
+    import torch
+
+    from repro_torch.kernels import euclidean as keu
+    from repro_torch.kernels import ops
+
+    raw = torch.randn(1 << 16, 256, device=dev)
+    q = torch.randn(1, 256, device=dev)
+    pos = torch.arange(64, dtype=torch.int32, device=dev)[None]
+    op = torch.ops.repro_torch.euclid_sq_gather
+    calls = {"entry": lambda: ops.euclid_sq_gather(q, raw, pos),
+             "operator": lambda: op(q, raw, pos),
+             "wrapper": lambda: keu.euclid_sq_gather_cuda(q, raw, pos)}
+    out = {k: [] for k in calls}
+    for _ in range(2):
+        for name, fn in calls.items():
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(OVERHEAD_CALLS):
+                fn()
+            torch.cuda.synchronize()
+            out[name].append((time.perf_counter() - t0) / OVERHEAD_CALLS
+                             * 1e6)
+    fig = {f"{k}_us": min(v) for k, v in out.items()}
+    fig["operator_minus_wrapper_us"] = fig["operator_us"] - fig["wrapper_us"]
+    log(f"[kernels] a call's host cost (euclid_sq_gather, 1 x 64 rows, best "
+        f"of 2 turns of {OVERHEAD_CALLS}): {fig['entry_us']:.2f} us through "
+        f"ops.euclid_sq_gather, {fig['operator_us']:.2f} us through "
+        f"torch.ops.repro_torch, {fig['wrapper_us']:.2f} us through the "
+        f"wrapper alone")
+    return fig
+
+
+def dryrun_child() -> None:
+    """The dryrun phase's traces, in a process of its own (the fake
+    process group never touches the main process): (a) the train phase's
+    step as a cell on a (1, 1) mesh, (b) the paris cells on the (16, 16)
+    mesh. Prints one JSON line of their records."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh
+
+    out = {}
+    with dryrun.fake_world():
+        mesh = make_debug_mesh((1, 1))
+        calib = ShapeConfig("calibration", TRAIN_SEQ, TRAIN_BATCH, "train")
+        out["calibration"] = dryrun.traced(lambda: specs.build_cell(
+            TRAIN_ARCH, "calibration", mesh,
+            overrides={"num_layers": TRAIN_LAYERS}, shape=calib,
+            microbatch_tokens_per_device=4096), 1)
+        single = make_production_mesh()
+        for shape in ("search", "build"):
+            out[f"paris/{shape}"] = dryrun.traced(
+                lambda: specs.build_paris_cell(shape, single), 256)
+    print(json.dumps(out, default=str))
+
+
+def phase_dryrun(train_fig: dict) -> tuple:
+    """The launch tools (``repro_torch.launch``: ``specs``, ``dryrun``,
+    ``roofline``) on the card's machine, in a child process: (a) the train
+    phase's own step traced on fake CUDA tensors and held to that phase's
+    measurements (FLOPs within 1% of ``train_flops``, the traced peak
+    beside the measured one, the roofline terms beside the step time);
+    (b) the paris search and build cells on the (16, 16) mesh. Returns
+    (the launch counts, all 0, and the ``{"dryrun": ...}`` figures)."""
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()  # the dryrun path starts here
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(SRC)] + [p for p in [env.get("PYTHONPATH")] if p])
+    t0 = time.perf_counter()
+    done = subprocess.run(
+        [sys.executable, str(pathlib.Path(__file__).resolve()),
+         "--dryrun-child"], env=env, capture_output=True, text=True,
+        timeout=DRYRUN_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if done.returncode:
+        log(done.stderr[-4000:])
+    expect(done.returncode == 0, f"dryrun child exited {done.returncode}")
+    recs = json.loads(done.stdout.strip().splitlines()[-1])
+    counts = path_counts("dryrun")  # the dryrun path ends here
+    expect(not any(counts.values()), "the dryrun phase launched a kernel")
+    for name, rec in recs.items():
+        expect(rec["status"] == "ok", f"dryrun {name}: {rec.get('error')}")
+
+    a = recs["calibration"]
+    r, mem = a["roofline"], a["memory"]
+    want = train_fig["flop_per_step"]
+    flop_err = abs(r["flops"] - want) / want
+    peak = mem["peak_estimate_bytes"] / 2**30
+    measured = train_fig["peak_gib"]
+    peak_err = (peak - measured) / measured
+    step_s = train_fig["median_step_ms"] / 1e3
+    log(f"[dryrun] (a) {TRAIN_ARCH} depth {TRAIN_LAYERS}, B {TRAIN_BATCH} x "
+        f"S {TRAIN_SEQ}, {a['meta']['microbatches']} microbatches, (1, 1) "
+        f"mesh, traced in {a['trace_s']:.2f} s: FLOPs {r['flops']:.6g} "
+        f"against the train phase's {want:.6g} ({100 * flop_err:.3f}%); "
+        f"peak {peak:.2f} GiB against the measured {measured:.2f} GiB "
+        f"({100 * peak_err:+.1f}%); compute {r['compute_s']:.4f} s, memory "
+        f"{r['memory_s']:.4f} s against the measured step {step_s:.4f} s")
+    expect(flop_err <= DRYRUN_FLOP_RTOL, f"dryrun (a): FLOPs off by "
+           f"{100 * flop_err:.3f}%")
+    expect(abs(peak_err) <= DRYRUN_PEAK_RTOL, f"dryrun (a): peak off by "
+           f"{100 * peak_err:+.1f}%")
+    fig = dict(calibration=dict(
+        flops=r["flops"], flops_by_dtype=r["flops_by_dtype"],
+        train_flops=want, flop_rel_err=flop_err, hbm_bytes=r["hbm_bytes"],
+        peak_gib=peak, measured_peak_gib=measured, peak_rel_err=peak_err,
+        compute_s=r["compute_s"], memory_s=r["memory_s"],
+        collective_s=r["collective_s"], measured_step_s=step_s,
+        microbatches=a["meta"]["microbatches"], trace_s=a["trace_s"]))
+    for shape in ("search", "build"):
+        b = recs[f"paris/{shape}"]
+        rb = b["roofline"]
+        fig[f"paris_{shape}"] = dict(
+            compute_s=rb["compute_s"], memory_s=rb["memory_s"],
+            collective_s=rb["collective_s"], dominant=rb["dominant"],
+            flops=rb["flops"], hbm_bytes=rb["hbm_bytes"],
+            collective_bytes=rb["collective_bytes"],
+            collective_by_link=rb["collective_by_link"],
+            unknown_trip_bodies=rb["unknown_trip_bodies"],
+            peak_gib=b["memory"]["peak_estimate_bytes"] / 2**30,
+            trace_s=b["trace_s"])
+        log(f"[dryrun] (b) paris/{shape} on (16, 16), rank 0: compute "
+            f"{rb['compute_s']:.3g} s, memory {rb['memory_s']:.3g} s, "
+            f"collective {rb['collective_s']:.3g} s ({rb['dominant']}); peak "
+            f"{fig[f'paris_{shape}']['peak_gib']:.3f} GiB; host reads "
+            f"counted once at {rb['unknown_trip_bodies']}")
+    log("[dryrun] (c) granite-34b/train_4k on (16, 16) traces for over an "
+        "hour of host CPU (88 layers x 16 microbatches through DTensor): "
+        "run it alone with python -m repro_torch.launch.dryrun")
+    fig.update(child_wall_s=wall, launches=counts)
+    return counts, fig
 
 
 SHARD_ARCH = "granite-34b"
@@ -3281,6 +3466,8 @@ def main(argv=None) -> int:
     ap.add_argument("--profile-lm", action="store_true",
                     help="trace the lm phase's datastore chunk, decode "
                     "steps and a retrieval step by torch.profiler")
+    ap.add_argument("--dryrun-child", action="store_true",
+                    help=argparse.SUPPRESS)  # the dryrun phase's process
     args = ap.parse_args(argv)
     if args.disk_log2_n is None:
         args.disk_log2_n = min(args.log2_n, DISK_LOG2_N_MAX)
@@ -3293,6 +3480,10 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(SRC))
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
+
+    if args.dryrun_child:
+        dryrun_child()
+        return 0
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3312,6 +3503,7 @@ def main(argv=None) -> int:
     base_counts = phase("baselines", phase_baselines, full)
     classify_counts = phase("classify", phase_classify, full)
     rows = phase("kernels", phase_kernels, full)
+    overhead = op_overhead(dev)
     tuning_rows = phase("tuning", phase_tuning, dev)
     serve_counts, serve_fig = phase("serve", phase_serve, full)
     mesh_counts, mesh_fig = phase("mesh", phase_mesh, full)
@@ -3327,12 +3519,14 @@ def main(argv=None) -> int:
     del full  # the LM phase starts from a card holding no index
     lm_counts, lm_fig = phase("lm", phase_lm, args, dev)
     train_counts, train_fig = phase("train", phase_train, args, dev)
+    dryrun_counts, dryrun_fig = phase("dryrun", phase_dryrun, train_fig)
+    dryrun_fig["op_overhead"] = overhead
     shard_counts, shard_fig = phase("shard", phase_shard, args, dev)
     for row in rows:  # launches: summed over the driven paths
         row["launches"] = sum(c[row["name"]] for c in (
             full_counts, base_counts, classify_counts, serve_counts,
             mesh_counts, packed_counts, disk_counts, lm_counts,
-            train_counts, shard_counts))
+            train_counts, dryrun_counts, shard_counts))
         expect(row["launches"] > 0, f"{row['name']} never launched")
     expect(sorted(r["name"] for r in rows) == sorted(KERNEL_ROWS),
            "the kernels line must list every kernel")
@@ -3342,6 +3536,7 @@ def main(argv=None) -> int:
     print(json.dumps({"mesh": mesh_fig}))
     print(json.dumps({"lm": lm_fig}))
     print(json.dumps({"train": train_fig}))
+    print(json.dumps({"dryrun": dryrun_fig}))
     print(json.dumps({"shard": shard_fig}))
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -33,7 +33,8 @@ JAX's leaves; the checkpoint writes that tree, so either package restores
 what the other saved. For a state placed over a mesh, ``load_train_state``
 copies each rank's block of every leaf (read from a memory-mapped file, a
 block at a time) and ``train_state_to_arrays`` gathers every leaf on every
-rank (a collective), keeping the host arrays only where ``keep`` is set.
+rank, or on one rank (``dst``, the checkpoint's writer) (a collective),
+keeping the host arrays only where ``keep`` is set.
 """
 
 from __future__ import annotations
@@ -258,26 +259,32 @@ def train_state_from_arrays(cfg, tree, device="cuda") -> TrainState:
     return load_train_state(init_train_state(model), tree)
 
 
-def _host_array(t, keep: bool = True):
+def _host_array(t, keep: bool = True, dst=None):
     """A tensor's global value as a host numpy array (a DTensor is gathered
-    on every rank: a collective), or None where ``keep`` is unset."""
+    on every rank, or on rank ``dst`` alone: a collective), or None where
+    ``keep`` is unset."""
     if is_dtensor(t):
-        t = t.full_tensor()
+        if dst is None:
+            t = t.full_tensor()
+        else:
+            from repro_torch.training.sharding import full_on
+
+            t = full_on(t, dst)
     return t.detach().cpu().numpy() if keep else None
 
 
-def _stack_tree(names, tensors, keep: bool = True):
+def _stack_tree(names, tensors, keep: bool = True, dst=None):
     """Per-parameter tensors -> JAX's parameter tree of numpy arrays: the
     parameters of one leaf stacked along its stacking axes, ``prefix`` a
     list (None where ``keep`` is unset, after the same gathers)."""
     if not keep:
         for t in tensors:
-            _host_array(t, keep=False)
+            _host_array(t, keep=False, dst=dst)
         return None
     groups = {}
     for name, t in zip(names, tensors):
         path, stack = jax_leaf(name)
-        groups.setdefault(path, []).append((stack, _host_array(t)))
+        groups.setdefault(path, []).append((stack, _host_array(t, dst=dst)))
     tree = {}
     for path, items in groups.items():
         arr = items[0][1]
@@ -303,12 +310,15 @@ def _stack_tree(names, tensors, keep: bool = True):
     return lists(tree)
 
 
-def train_state_to_arrays(state: TrainState, keep: bool = True) -> tuple:
+def train_state_to_arrays(state: TrainState, keep: bool = True,
+                          dst=None) -> tuple:
     """The port's ``TrainState`` -> JAX's train state ``(params,
     OptState(step, mu, nu))`` of host numpy arrays (float32 parameters:
     the masters). Over a mesh every rank must call it (each leaf is
-    gathered); ``keep`` unset leaves None in place of the arrays."""
-    return (_stack_tree(state.names, state.master, keep),
+    gathered on every rank, or with ``dst`` on that rank alone, which must
+    then be the one that keeps); ``keep`` unset leaves None in place of
+    the arrays."""
+    return (_stack_tree(state.names, state.master, keep, dst),
             OptState(step=state.opt.step.cpu().numpy(),
-                     mu=_stack_tree(state.names, state.opt.mu, keep),
-                     nu=_stack_tree(state.names, state.opt.nu, keep)))
+                     mu=_stack_tree(state.names, state.opt.mu, keep, dst),
+                     nu=_stack_tree(state.names, state.opt.nu, keep, dst)))

@@ -3,6 +3,9 @@
 The entry points take ``device="cuda"`` by default. A CUDA request on a
 machine without a card raises here instead of running on the CPU; the CPU
 runs only when the caller asks for it (``device="cpu"``, as the tests do).
+The one exception is a ``FakeTensorMode`` (``launch/dryrun.py``): while one
+is active nothing can allocate or run, so ``"cuda"`` resolves to
+``cuda:0`` without a card and the trace takes the card's path.
 """
 
 from __future__ import annotations
@@ -16,6 +19,9 @@ def resolve_device(device) -> torch.device:
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
+            if fake_mode_active():
+                return dev if dev.index is not None else torch.device(
+                    "cuda", 0)
             raise RuntimeError(
                 f"device {str(dev)!r} requested but torch.cuda.is_available() "
                 "is False; pass device='cpu' to run the plain versions on the "
@@ -25,6 +31,14 @@ def resolve_device(device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {str(dev)!r}: 'cuda' or 'cpu'")
     return dev
+
+
+def fake_mode_active() -> bool:
+    """Whether a ``FakeTensorMode`` is active (tensors are fake: nothing
+    allocates or runs)."""
+    from torch._guards import detect_fake_mode
+
+    return detect_fake_mode() is not None
 
 
 def as_f32(x, device: torch.device) -> torch.Tensor:

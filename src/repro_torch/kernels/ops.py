@@ -1,6 +1,9 @@
 """Dispatch between the hand-written CUDA kernels and their plain versions.
 
-Counterpart of ``repro/kernels/ops.py``. Every op takes ``impl``:
+Counterpart of ``repro/kernels/ops.py``. A tensor on the card (a fake one
+too, under the dry-run's ``FakeTensorMode``) goes through the kernel's
+operator ``torch.ops.repro_torch.*`` (``kernels/library.py``), whose CUDA
+implementation is the ``*_cuda`` wrapper. Every op takes ``impl``:
 
   * ``"auto"`` — the CUDA kernel for a tensor on the card, the plain
                  PyTorch version for a tensor on the CPU;
@@ -25,9 +28,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import euclidean as _euclid
+from repro_torch.kernels import library as _library  # noqa: F401
 from repro_torch.kernels import lower_bound as _lb
 from repro_torch.kernels import paa_isax as _pi
 from repro_torch.kernels import ref as _ref
+
+_OPS = torch.ops.repro_torch
 
 # name -> (wrapper module, its attribute: the kernel's LaunchCounter)
 KERNELS = {
@@ -90,7 +96,7 @@ def lower_bound_sq(
                                         series_length)
     if not _use_kernel(sax, impl):
         return _ref.lower_bound_sq(query_paa, sax, bp_padded, series_length)
-    return _lb.lower_bound_sq_cuda(
+    return _OPS.lower_bound_sq(
         query_paa.contiguous(), sax, bp_padded, series_length,
         threads=threads, blocks_per_sm=blocks_per_sm)
 
@@ -110,7 +116,7 @@ def lower_bound_sq_batch(
     if not _use_kernel(sax, impl):
         return _ref.lower_bound_sq_batch(
             query_paa, sax, bp_padded, series_length)
-    return _lb.lower_bound_sq_batch_cuda(
+    return _OPS.lower_bound_sq_batch(
         query_paa.contiguous(), sax, bp_padded, series_length,
         block_q=block_q, threads=threads, rows=rows)
 
@@ -149,7 +155,7 @@ def lower_bound_sq_multi(
         valid = (lanes[None, :] < block_len.to(torch.int32)[:, None])
         return _ref.lower_bound_sq_batch_multi(
             query_paa, sax, bp_padded, series_length, valid.reshape(-1))
-    return _lb.lower_bound_sq_multi_cuda(
+    return _OPS.lower_bound_sq_multi(
         query_paa.contiguous(), sax, bp_padded, series_length,
         block_len.to(torch.int32).contiguous(), block_n, block_q=block_q,
         threads=threads, rows=rows)
@@ -167,8 +173,8 @@ def paa_isax(
     """(B, n) raw -> ((B, w) uint8 sax, (B, w) f32 paa)."""
     if not _use_kernel(series, impl):
         return _ref.paa_isax(series, segments, breakpoints, normalize)
-    return _pi.paa_isax_cuda(series, breakpoints, segments, normalize,
-                             threads=threads)
+    return _OPS.paa_isax(series, breakpoints, segments, normalize,
+                         threads=threads)
 
 
 def euclid_sq_gather(
@@ -189,7 +195,7 @@ def euclid_sq_gather(
         if positions.dim() == 1:
             positions = positions[None, :].expand(queries.shape[0], -1)
         return _ref.euclid_sq_gather(queries, raw, positions)
-    return _euclid.euclid_sq_gather_cuda(
+    return _OPS.euclid_sq_gather(
         queries.contiguous(), raw, positions.to(torch.int32).contiguous(),
         threads=threads, rows_per_warp=rows_per_warp)
 
@@ -207,7 +213,7 @@ def euclid_sq(
     if not _use_kernel(data, impl):
         return _ref.euclid_sq(query, data)
     ident = torch.arange(data.shape[0], dtype=torch.int32, device=data.device)
-    return _euclid.euclid_sq_gather_cuda(
+    return _OPS.euclid_sq_gather(
         query.reshape(1, -1).contiguous(), data, ident)[0]
 
 
@@ -224,4 +230,4 @@ def euclid_min(
     """
     if not _use_kernel(data, impl):
         return _ref.euclid_min(query, data)
-    return _euclid.euclid_min_cuda(query.contiguous(), data)
+    return _OPS.euclid_min(query.contiguous(), data)

@@ -1,20 +1,26 @@
-"""The lattice search the kernel autotuner runs (``repro_torch.core.tuning``).
+"""Reusable hillclimb drivers: lattice search + the dry-run variant sweep.
 
-Counterpart of ``repro/launch/hillclimb.py``'s search loop, copied as it
-is, so the two tuners take the same steps on the same cost surface:
+Counterpart of ``repro/launch/hillclimb.py``, both halves:
 
-  * :func:`snap_to_lattice` — the nearest lattice point to a value;
-  * :func:`coordinate_descent` — greedy search over a product lattice: one
-    axis at a time, step to a neighbour only when it wins by more than
-    ``min_gain`` (the noise floor), repeat until no axis improves.
+  * :func:`snap_to_lattice` and :func:`coordinate_descent` — the greedy
+    lattice search the kernel autotuner (``repro_torch.core.tuning``) runs
+    over launch shapes, copied as it is, so the two tuners take the same
+    steps on the same cost surface: one axis at a time, step to a
+    neighbour only when it wins by more than ``min_gain`` (the noise
+    floor), repeat until no axis improves;
+  * :data:`VARIANTS`, :func:`show`, :func:`run_variants` and :func:`main`
+    — the dry-run variant sweep: tagged variants of three cells, each
+    traced by ``launch/dryrun.py`` and printed beside the cell's baseline
+    record as roofline terms on the H100.
 
-The reference module also holds the LM dry-run variant sweep
-(``run_variants``/``VARIANTS``), which belongs to the LM side-stack and has
-no counterpart here yet. Importing this module imports nothing else.
+Importing this module imports nothing else; :func:`run_variants` imports
+the dry-run when it runs.
 """
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Callable, Dict, List, Sequence, Tuple
 
 
@@ -71,3 +77,103 @@ def coordinate_descent(
         if not improved:
             break
     return cur, best, history
+
+
+# --------------------------------------------------------------------------
+# The dry-run variant sweep (the reference's ``VARIANTS``, verbatim).
+# Cells (the reference's choice from its baseline table):
+#   * olmoe-1b-7b/train_4k — the global MoE dispatch's collectives;
+#   * granite-34b/train_4k — the dense model's memory term and peak;
+#   * paris/search — the paper's own technique on the pod.
+# Each variant is one hypothesis -> change -> re-trace -> re-count cycle.
+
+VARIANTS = [
+    # --- olmoe train: kill the dispatch all-reduce ---
+    ("olmoe-1b-7b", "train_4k", "opt1_local_dispatch",
+     dict(overrides={"moe_dispatch": "local"})),
+    ("olmoe-1b-7b", "train_4k", "opt2_local_plus_dense_attn",
+     dict(overrides={"moe_dispatch": "local",
+                     "attn_dense_threshold": 4096})),
+    ("olmoe-1b-7b", "train_4k", "opt3_local_dense_mb4",
+     dict(overrides={"moe_dispatch": "local",
+                     "attn_dense_threshold": 4096},
+          build_kwargs=dict(microbatch_tokens_per_device=16384))),
+    # --- granite train: dense attention + sequence-parallel activations ---
+    ("granite-34b", "train_4k", "opt1_dense_attn",
+     dict(overrides={"attn_dense_threshold": 4096})),
+    ("granite-34b", "train_4k", "opt2_dense_attn_seqshard",
+     dict(overrides={"attn_dense_threshold": 4096},
+          build_kwargs=dict(logical_overrides={"seq": "model"},
+                            microbatch_tokens_per_device=65536))),
+    ("granite-34b", "train_4k", "opt3_dense_seqshard_mb2",
+     dict(overrides={"attn_dense_threshold": 4096},
+          build_kwargs=dict(logical_overrides={"seq": "model"},
+                            microbatch_tokens_per_device=32768))),
+    ("granite-34b", "train_4k", "opt4_dense_seqshard_mb4",
+     dict(overrides={"attn_dense_threshold": 4096},
+          build_kwargs=dict(logical_overrides={"seq": "model"},
+                            microbatch_tokens_per_device=16384))),
+    # --- paris search: round sizing + query batching ---
+    ("paris", "search", "opt1_round16k",
+     dict(build_kwargs=dict(round_size=16384))),
+    ("paris", "search", "opt2_batch16",
+     dict(build_kwargs=dict(batch_queries=16))),
+    ("paris", "search", "opt3_batch16_topk",
+     dict(build_kwargs=dict(batch_queries=16, select="topk"))),
+]
+
+
+def show(rec: dict, label: str) -> None:
+    """Print one dry-run record's roofline terms as a single line."""
+    if rec["status"] != "ok":
+        print(f"  {label}: ERROR {rec['error'][:160]}")
+        return
+    r = rec["roofline"]
+    print(f"  {label}: compute={r['compute_s']:.3f}s mem={r['memory_s']:.3f}s"
+          f" coll={r['collective_s']:.3f}s dom={r['dominant']}"
+          f" peak={rec['memory']['peak_estimate_bytes'] / 2**30:.2f}GiB"
+          f" ratio={rec.get('model_flops_ratio')}")
+
+
+def run_variants(outdir: str, only: str | None = None) -> None:
+    """Run every (cell, tag) variant, printing baseline-vs-variant terms.
+
+    ``only`` filters on substring match against ``arch/shape/tag``. Each
+    cell's baseline is its record in ``outdir`` (``python -m
+    repro_torch.launch.dryrun`` writes it). The caller has started the
+    dry-run's fake process group (:func:`main` does).
+    """
+    from repro_torch.launch.dryrun import run_cell
+
+    for arch, shape, tag, kw in VARIANTS:
+        if only and only not in f"{arch}/{shape}/{tag}":
+            continue
+        print(f"== {arch}/{shape} :: {tag}")
+        with open(os.path.join(outdir,
+                               f"single__{arch}__{shape}.json")) as f:
+            base = json.load(f)
+        show(base, "baseline")
+        rec = run_cell(arch, shape, "single", outdir, tag=tag, **kw)
+        show(rec, tag)
+
+
+def main(argv: Sequence[str] | None = None) -> None:
+    """CLI entry: ``python -m repro_torch.launch.hillclimb [filter]`` runs
+    the sweep over ``experiments/dryrun_torch/`` (the dry-run's records)
+    as rank 0 of the dry-run's fake process group."""
+    import sys
+
+    from repro_torch.launch import dryrun, fake_cuda
+
+    args = list(sys.argv[1:] if argv is None else argv)
+    fake_cuda.ensure("repro_torch.launch.hillclimb", args)
+    outdir = os.path.join(
+        os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.dirname(os.path.abspath(__file__))))),
+        "experiments", "dryrun_torch")
+    with dryrun.fake_world():
+        run_variants(outdir, only=args[0] if args else None)
+
+
+if __name__ == "__main__":
+    main()

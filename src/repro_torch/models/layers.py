@@ -469,6 +469,65 @@ def _write_cache(cache, new, start):
     return out
 
 
+def _cached_core(q, k, v, kc, vc, cache_position, pos2d, causal, window):
+    """Attention of (B, Sq) queries against a cache after writing k and v
+    into it at ``cache_position``: (out, new k cache, new v cache)."""
+    b, sq = q.shape[:2]
+    cp = torch.as_tensor(cache_position, device=q.device)
+    starts = cp.expand(b) if cp.dim() == 0 else cp
+    ck = _write_cache(kc, k, starts)
+    cv = _write_cache(vc, v, starts)
+    sk = ck.shape[1]
+    k_pos = torch.arange(sk, device=q.device)
+    if cp.dim() == 0:
+        bias = _mask_bias(pos2d[0], k_pos, causal, window)  # (Sq, Sk)
+        written = k_pos[None, :] <= cp + sq - 1
+        bias = bias + _bias(written)
+    else:  # per-row positions -> (B, Sq, Sk) bias
+        diff = pos2d[:, :, None] - k_pos[None, None, :]
+        ok = torch.ones(diff.shape, dtype=torch.bool, device=q.device)
+        if causal:
+            ok &= diff >= 0
+        if window > 0:
+            ok &= diff < window
+        ok &= k_pos[None, None, :] <= (cp[:, None, None] + sq - 1)
+        bias = _bias(ok)
+    return _sdpa_dense(q, ck.to(q.dtype), cv.to(q.dtype), bias), ck, cv
+
+
+def _cached_local(q, k, v, kv_cache, cache_position, pos2d, causal, window):
+    """:func:`_cached_core` under a mesh, as an explicit step on each
+    rank's batch rows: DTensor has no placement for the cache write's
+    ``index_put_`` on a sharded cache. Every other dim (heads, and the
+    cache's sequence when it is sharded) is gathered for the step, and the
+    new caches are placed back as the old ones were (a local slice). A
+    scalar ``cache_position`` only (the decode step's)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if torch.as_tensor(cache_position).dim():
+        raise NotImplementedError("per-row cache positions under a mesh")
+    mesh = q.device_mesh
+    rows = [pl if isinstance(pl, Shard) and pl.dim == 0 else Replicate()
+            for pl in q.placements]
+
+    def loc(t):
+        if not is_dtensor(t):  # a plain (replicated) cache: its rows
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim)
+        return t.redistribute(mesh, rows).to_local()
+
+    out, ck, cv = _cached_core(loc(q), loc(k), loc(v), loc(kv_cache[0]),
+                               loc(kv_cache[1]), cache_position, pos2d,
+                               causal, window)
+
+    def back(t, like):
+        t = DTensor.from_local(t, mesh, rows)
+        return t.redistribute(mesh, like.placements) if is_dtensor(
+            like) else t
+
+    return (DTensor.from_local(out, mesh, rows), back(ck, kv_cache[0]),
+            back(cv, kv_cache[1]))
+
+
 def attention(
     p,
     x: torch.Tensor,
@@ -503,31 +562,19 @@ def attention(
     q = logical(q, "batch", "attn_seq", "heads", None)
     k = logical(k, "batch", "attn_seq", "kv_heads", None)
     pos2d = positions if positions.dim() == 2 else positions[..., 0]
+    if is_dtensor(pos2d):  # placed positions (M-RoPE's batch input)
+        pos2d = pos2d.full_tensor()  # the masks read row 0's, whole
     if rope_theta > 0:
         q = apply_rope(q, positions, rope_theta, mrope_sections)
         k = apply_rope(k, positions, rope_theta, mrope_sections)
 
     if kv_cache is not None:
-        cp = torch.as_tensor(cache_position, device=x.device)
-        starts = cp.expand(b) if cp.dim() == 0 else cp
-        ck = _write_cache(kv_cache[0], k, starts)
-        cv = _write_cache(kv_cache[1], v, starts)
-        sk = ck.shape[1]
-        k_pos = torch.arange(sk, device=x.device)
-        if cp.dim() == 0:
-            bias = _mask_bias(pos2d[0], k_pos, causal, window)  # (Sq, Sk)
-            written = k_pos[None, :] <= cp + sq - 1
-            bias = bias + _bias(written)
-        else:  # per-row positions -> (B, Sq, Sk) bias
-            diff = pos2d[:, :, None] - k_pos[None, None, :]
-            ok = torch.ones(diff.shape, dtype=torch.bool, device=x.device)
-            if causal:
-                ok &= diff >= 0
-            if window > 0:
-                ok &= diff < window
-            ok &= k_pos[None, None, :] <= (cp[:, None, None] + sq - 1)
-            bias = _bias(ok)
-        out = _sdpa_dense(q, ck.to(q.dtype), cv.to(q.dtype), bias)
+        if is_dtensor(q):
+            out, ck, cv = _cached_local(q, k, v, kv_cache, cache_position,
+                                        pos2d, causal, window)
+        else:
+            out, ck, cv = _cached_core(q, k, v, kv_cache[0], kv_cache[1],
+                                       cache_position, pos2d, causal, window)
         new_kv = (ck, cv)
     else:
         if sq <= dense_threshold:

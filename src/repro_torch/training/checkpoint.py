@@ -30,9 +30,10 @@ cannot place such a leaf; a train state holds none, its masters are
 float32.)
 
 Over a mesh (a state placed by ``training/sharding.py``, or DTensor
-leaves), every rank calls ``save``: each leaf is gathered on every rank (a
-collective), rank 0 alone writes, and every rank waits for the write
-before it returns, so the files are the bytes an unsharded save writes.
+leaves), every rank calls ``save``: each leaf is gathered on rank 0 (a
+collective: every rank sends its block there, ``sharding.full_on``), rank 0
+alone writes, and every rank waits for the write before it returns, so
+the files are the bytes an unsharded save writes.
 ``AsyncSaver`` gathers on the calling thread and only the write goes to
 the background. ``restore(..., shardings=)`` places each leaf under its
 ``NamedSharding`` (a state: under ``(param_shardings,
@@ -113,14 +114,18 @@ def _snapshot(tree) -> tuple:
     from repro_torch.training import sharding
     from repro_torch.training.train_step import TrainState
 
-    writer = not _sharded(tree) or torch.distributed.get_rank() == 0
+    sharded = _sharded(tree)
+    writer = not sharded or torch.distributed.get_rank() == 0
     if isinstance(tree, TrainState):
-        tree = train_state_to_arrays(tree, keep=writer)
+        tree = train_state_to_arrays(tree, keep=writer,
+                                     dst=0 if sharded else None)
     flat = _flatten(tree)
     leaves = []
     for _, leaf in flat:
         if isinstance(leaf, torch.Tensor):
-            leaf = sharding.full(leaf).detach().cpu().clone()
+            leaf = sharding.full_on(leaf, 0)  # rank 0 writes
+            if leaf is not None:
+                leaf = leaf.detach().cpu().clone()
         leaves.append(leaf if writer else None)
     return ["/".join(p) for p, _ in flat], leaves, writer
 

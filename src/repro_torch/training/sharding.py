@@ -216,20 +216,25 @@ def spec_placements(mesh, spec: Sequence) -> tuple:
 
 def mesh_device(mesh) -> torch.device:
     """The device this rank's blocks of ``mesh`` live on."""
-    if mesh.device_type == "cuda":
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device(mesh.device_type)
+    from repro_torch.core.device import resolve_device
+
+    return resolve_device(mesh.device_type)
 
 
 def local_block(shape, mesh, placements) -> tuple:
     """This rank's block of a tensor of global ``shape``: one slice a
-    dimension."""
+    dimension. The offsets are plain integers, computed outside any
+    ``FakeTensorMode`` (under one, DTensor's coordinate arithmetic would
+    read a fake scalar)."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
     from torch.distributed.tensor._utils import (
         compute_local_shape_and_global_offset)
 
-    lshape, offset = compute_local_shape_and_global_offset(
-        tuple(shape), mesh, placements)
-    return tuple(slice(o, o + n) for o, n in zip(offset, lshape))
+    with unset_fake_temporarily():
+        lshape, offset = compute_local_shape_and_global_offset(
+            tuple(int(d) for d in shape), mesh, placements)
+    return tuple(slice(int(o), int(o) + int(n))
+                 for o, n in zip(offset, lshape))
 
 
 def place(x, mesh, placements) -> torch.Tensor:
@@ -241,7 +246,12 @@ def place(x, mesh, placements) -> torch.Tensor:
     placements = tuple(placements)
     block = local_block(x.shape, mesh, placements)
     if isinstance(x, torch.Tensor):
-        local = x.detach()[block].to(mesh_device(mesh), copy=True)
+        local = x.detach()
+        for d, s in enumerate(block):  # narrow: no device guard (fake CUDA)
+            local = local.narrow(d, s.start, s.stop - s.start)
+        dev = mesh_device(mesh)
+        local = (local.clone() if local.device == dev
+                 else local.to(dev, copy=True))
     else:
         local = torch.from_numpy(np.ascontiguousarray(x[block])).to(
             mesh_device(mesh))
@@ -344,6 +354,57 @@ def full(x):
     """A DTensor's global value on every rank (a collective); a plain
     tensor as it is."""
     return x.full_tensor() if layers_mod.is_dtensor(x) else x
+
+
+def full_on(x, dst: int = 0):
+    """A DTensor's global value on rank ``dst`` alone, None on the others
+    (every rank of the mesh calls it): each rank sends its block to
+    ``dst`` (``dist.gather``), where :func:`full`'s all-gather would send
+    every block to every rank. A plain tensor as it is. Over ``gloo`` the
+    blocks go through the host (its gather takes host tensors). A mesh
+    that is not the whole world, or a 0-d tensor, is gathered by
+    :func:`full`."""
+    import math
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard
+
+    if not layers_mod.is_dtensor(x):
+        return x
+    mesh, me = x.device_mesh, dist.get_rank()
+    world = dist.get_world_size()
+    if math.prod(mesh.shape) != world or x.dim() == 0:
+        out = x.full_tensor()
+        return out if me == dst else None
+    local = x.to_local().detach()
+    if dist.get_backend() == "gloo":
+        local = local.cpu()
+    local = local.contiguous().reshape(-1)
+    block = local_block(x.shape, mesh, x.placements)
+    # every rank pads its block to the largest a rank can hold
+    parts = [math.prod(mesh.size(i) for i, pl in enumerate(x.placements)
+                       if isinstance(pl, Shard) and pl.dim == d)
+             for d in range(x.dim())]
+    cap = math.prod(-(-n // p) for n, p in zip(x.shape, parts))
+    meta = torch.tensor([v for s in block for v in (s.start, s.stop)],
+                        dtype=torch.int64, device=local.device)
+    buf = local.new_zeros(cap)
+    buf[:local.numel()] = local
+    metas = [torch.empty_like(meta) for _ in range(world)] if me == dst \
+        else None
+    bufs = [torch.empty_like(buf) for _ in range(world)] if me == dst \
+        else None
+    dist.gather(meta, metas, dst=dst)
+    dist.gather(buf, bufs, dst=dst)
+    if me != dst:
+        return None
+    out = torch.empty(tuple(x.shape), dtype=x.dtype, device=buf.device)
+    for m, b in zip(metas, bufs):
+        m = m.tolist()
+        sl = tuple(slice(m[2 * i], m[2 * i + 1]) for i in range(x.dim()))
+        shape = tuple(s.stop - s.start for s in sl)
+        out[sl] = b[:math.prod(shape)].view(shape)
+    return out
 
 
 def local(x):

@@ -1039,3 +1039,105 @@ def test_cuda_moe_forward_backward_replays_bitwise(cuda_device, no_tf32,
     finally:
         torch.use_deterministic_algorithms(old)
     assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+# --- The kernel operators (torch.ops.repro_torch) and the dry-run ---------
+
+
+def _op_cases(dev):
+    """Each operator's arguments on the card, and the direct wrapper call
+    they must equal bit for bit."""
+    from repro_torch.kernels import euclidean as keu
+    from repro_torch.kernels import lower_bound as klb
+    from repro_torch.kernels import paa_isax as kpi
+
+    z = tx.znorm(_t(random_walk(3000, 256, seed=111))).to(dev)
+    q = tx.znorm(_t(random_walk(9, 256, seed=112))).to(dev)
+    bp = tx.gaussian_breakpoints(256, dev)
+    bpp = tx.padded_breakpoints(256, dev)
+    sax, _ = tx.convert_to_sax(z, 16, 256, normalize=False)
+    qp = tx.paa(q, 16)
+    pos = torch.randint(0, 3000, (9, 77), generator=torch.Generator(
+        device=dev).manual_seed(1), device=dev, dtype=torch.int32)
+    n_pad = 3072
+    sax_pad = torch.zeros((n_pad, 16), dtype=torch.uint8, device=dev)
+    sax_pad[:3000] = sax
+    block_len = torch.full((n_pad // 128,), 128, dtype=torch.int32,
+                           device=dev)
+    block_len[-1] = 3000 - 128 * (n_pad // 128 - 1)
+    return {
+        "paa_isax": ((z, bp, 16, False), kpi.paa_isax_cuda, kpi.launches),
+        "lower_bound_sq_batch": ((qp, sax, bpp, 256),
+                                 klb.lower_bound_sq_batch_cuda, klb.launches),
+        "lower_bound_sq": ((qp[0].contiguous(), sax, bpp, 256),
+                           klb.lower_bound_sq_cuda, klb.single_launches),
+        "lower_bound_sq_multi": ((qp, sax_pad, bpp, 256, block_len, 128),
+                                 klb.lower_bound_sq_multi_cuda,
+                                 klb.multi_launches),
+        "euclid_sq_gather": ((q, z, pos), keu.euclid_sq_gather_cuda,
+                             keu.launches),
+        "euclid_min": ((q[0].contiguous(), z), keu.euclid_min_cuda,
+                       keu.min_launches),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["paa_isax", "lower_bound_sq_batch",
+                                  "lower_bound_sq", "lower_bound_sq_multi",
+                                  "euclid_sq_gather", "euclid_min"])
+def test_cuda_operator_equals_wrapper_and_counts_once(cuda_device, name):
+    args, wrapper, counter = _op_cases(cuda_device)[name]
+    want = wrapper(*args)
+    before = counter.value
+    got = getattr(torch.ops.repro_torch, name)(*args)
+    torch.cuda.synchronize()
+    assert counter.value == before + 1
+    want = want if isinstance(want, tuple) else (want,)
+    got = got if isinstance(got, tuple) else (got,)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_cuda_smoke_dryrun_traces_on_fake_cuda(cuda_device):
+    """A smoke-config train cell and the paris search cell traced on fake
+    ``cuda`` tensors, in a process of their own (the fake process group
+    stays there), on a machine with a card: nothing launches."""
+    import json
+    import os
+    import subprocess
+    import sys
+    import textwrap
+
+    code = textwrap.dedent("""
+        import dataclasses, json
+        from repro_torch import configs
+        from repro_torch.configs.base import ShapeConfig
+        from repro_torch.kernels import ops
+        from repro_torch.launch import dryrun, specs
+        from repro_torch.launch.mesh import make_debug_mesh
+        smoke = configs.get_smoke_config("granite-34b")
+        over = {f.name: getattr(smoke, f.name)
+                for f in dataclasses.fields(smoke)}
+        with dryrun.fake_world(8):
+            mesh = make_debug_mesh((2, 2))
+            train = dryrun.traced(lambda: specs.build_cell(
+                "granite-34b", "t", mesh, overrides=over,
+                shape=ShapeConfig("t", 64, 8, "train"),
+                microbatch_tokens_per_device=128), 4)
+            search = dryrun.traced(
+                lambda: specs.build_paris_cell("search", mesh), 4)
+        print(json.dumps(dict(train=train, search=search,
+                              launches=ops.launch_counts()), default=str))
+    """)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    rec = json.loads(out.stdout.strip().splitlines()[-1])
+    assert rec["train"]["status"] == "ok"
+    assert rec["train"]["roofline"]["flops"] > 0
+    assert rec["train"]["roofline"]["collective_bytes"] > 0
+    assert rec["search"]["status"] == "ok"
+    assert rec["search"]["roofline"]["unknown_trip_bodies"]
+    assert not any(rec["launches"].values())
