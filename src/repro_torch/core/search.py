@@ -23,7 +23,8 @@ service tiers (6-tuple, :class:`Tier`). The reference runs it as a jitted
 ``while_loop``; here it is a host loop over device tensors, and each round
 reads one flag back from the device to decide whether to go on. The round
 count is the reference's: ``rounds`` and ``reads`` are outputs the tests
-compare.
+compare. While a profiler runs, each step of both engines is a named
+``paris.*`` range (:func:`repro_torch.core.trace.span`).
 
 Positions inside the engine are int32; ``NO_POS`` (-1) marks an unfilled
 result slot with an INF distance.
@@ -37,7 +38,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch.core import isax, tuning
+from repro_torch.core import isax, trace, tuning
 from repro_torch.core.device import as_f32, resolve_device
 from repro_torch.core.index import ParISIndex
 from repro_torch.kernels import ops
@@ -386,158 +387,180 @@ def _engine_core(
     if tiered and not sort:
         raise ValueError("service tiers require the sorted-candidate "
                          "engine (sort=True)")
-    dev = queries.device
-    n_rows = view.n_rows
-    n_q = queries.shape[0]
-    rs = round_size
-    qs = isax.znorm(queries)
-    qps = isax.paa(qs, view.segments)
+    with trace.span("paris.engine"):
+        dev = queries.device
+        n_rows = view.n_rows
+        n_q = queries.shape[0]
+        rs = round_size
+        with trace.span("paris.engine.prep"):
+            qs = isax.znorm(queries)
+            qps = isax.paa(qs, view.segments)
 
-    # Result lists: slot 0 holds the seed (if any), the rest (INF, NO_POS).
-    top_d = torch.full((n_q, k), INF, device=dev)
-    top_p = torch.full((n_q, k), NO_POS, dtype=torch.int32, device=dev)
-    reads0 = 0
-    if seed0 is None and view.seed is not None:
-        bsf0, pos0, reads0 = view.seed(queries, impl)
-        seed0 = (bsf0, pos0)
-    if seed0 is not None:
-        top_d[:, 0] = seed0[0]
-        top_p[:, 0] = seed0[1].to(torch.int32)
-    reads = torch.full((n_q,), reads0, dtype=torch.int32, device=dev)
-    updates = torch.zeros((n_q,), dtype=torch.int32, device=dev)
-    skip_lb = torch.full((n_q,), INF, device=dev) if tiered else None
+        # Result lists: slot 0 holds the seed (if any), the rest
+        # (INF, NO_POS).
+        top_d = torch.full((n_q, k), INF, device=dev)
+        top_p = torch.full((n_q, k), NO_POS, dtype=torch.int32, device=dev)
+        reads0 = 0
+        if seed0 is None and view.seed is not None:
+            with trace.span("paris.engine.seed"):
+                bsf0, pos0, reads0 = view.seed(queries, impl)
+            seed0 = (bsf0, pos0)
+        if seed0 is not None:
+            top_d[:, 0] = seed0[0]
+            top_p[:, 0] = seed0[1].to(torch.int32)
+        reads = torch.full((n_q,), reads0, dtype=torch.int32, device=dev)
+        updates = torch.zeros((n_q,), dtype=torch.int32, device=dev)
+        skip_lb = torch.full((n_q,), INF, device=dev) if tiered else None
 
-    # --- LBC phase: ONE fused (Q, n_rows) pass over the SAX rows. ---
-    lb = view.lower_bounds(qps, impl)
+        # --- LBC phase: ONE fused (Q, n_rows) pass over the SAX rows. ---
+        with trace.span("paris.engine.bounds"):
+            lb = view.lower_bounds(qps, impl)
 
-    # --- Per-query candidate orders, ties toward the lower row. ---
-    if sort:
-        sel_len = select_len(n_rows, rs) if select == "topk" else n_rows
-        order, lb_sel = _smallest(lb, sel_len)
-    else:
-        sel_len = n_rows
-        lb_sel = lb
-    n_rounds = -(-sel_len // rs)
-
-    def merge(top_d, top_p, cand_pos, d):
-        if k == 1:  # 1-NN: argmin + strict improvement (ties keep incumbent)
-            j = torch.argmin(d, dim=1, keepdim=True)
-            dj = d.gather(1, j)
-            better = dj < top_d
-            return (torch.where(better, dj, top_d),
-                    torch.where(better, cand_pos.gather(1, j), top_p))
-        # k-safety: a re-distanced candidate must not enter the list twice.
-        d = torch.where(dedup_mask(cand_pos, top_d, top_p), INF, d)
-        md = torch.cat([top_d, d], dim=1)
-        mp = torch.cat([top_p, cand_pos], dim=1)
-        # Stable sort: ties keep the lower column, so the incumbent wins.
-        vals, sel = torch.sort(md, dim=1, stable=True)
-        return vals[:, :k], mp.gather(1, sel[:, :k])
-
-    def tier_skip(skip_lb, would, mask, lbs):
-        # Candidates the exact engine would have checked but the tier
-        # skipped feed the achieved-bound tracker.
-        return torch.minimum(
-            skip_lb, torch.where(would & ~mask, lbs, INF).amin(dim=1))
-
-    def apply_round(top_d, top_p, reads, updates, cand_pos, d, mask):
-        d = torch.where(mask, d, INF)
-        improved = d.amin(dim=1) < top_d[:, -1]
-        top_d, top_p = merge(top_d, top_p, cand_pos, d)
-        return (top_d, top_p, reads + mask.sum(dim=1, dtype=torch.int32),
-                updates + improved.to(torch.int32))
-
-    r = 0
-    while r < n_rounds:
-        kth = top_d[:, -1]
-        if sort:  # joint early exit: every query's next bound >= its BSF
-            head = lb_sel[:, r * rs]
-            if tiered:
-                go = ((r < budget_rounds) & (head * eps_factor_sq < kth)).any()
-            else:
-                go = (head < kth).any()
-            if not bool(go):
-                break
-        lbs = _round_cols(lb_sel, r, rs, INF)
-        if tiered:
-            would = lbs < kth[:, None]
-            mask = ((lbs * eps_factor_sq[:, None] < kth[:, None])
-                    & (r < budget_rounds)[:, None])
-            skip_lb = tier_skip(skip_lb, would, mask, lbs)
-        else:
-            mask = lbs < kth[:, None]
+        # --- Per-query candidate orders, ties toward the lower row. ---
         if sort:
-            cand_pos = view.positions(_round_cols(order, r, rs, 0))  # (Q, rs)
-            d = view.distances(qs, cand_pos, impl, mask)  # the "disk reads"
+            sel_len = select_len(n_rows, rs) if select == "topk" else n_rows
+            with trace.span("paris.engine.select"):
+                order, lb_sel = _smallest(lb, sel_len)
         else:
-            pos1 = view.positions(_round_rows(n_rows, r, rs, dev))
-            d = view.distances(qs, pos1, impl, mask)
-            cand_pos = pos1[None, :].expand(n_q, rs)
-        top_d, top_p, reads, updates = apply_round(
-            top_d, top_p, reads, updates, cand_pos, d, mask)
-        r += 1
-    r_main = r
+            sel_len = n_rows
+            lb_sel = lb
+        n_rounds = -(-sel_len // rs)
 
-    fb_r2 = None
-    if sort and select == "topk" and sel_len < n_rows:
-        # Exactness fallback: a query whose last *selected* bound still beats
-        # its BSF might have unselected qualifying candidates — scan the
-        # full row order with per-query (bound, need) masks, re-evaluated
-        # every round. In the common case no query needs it and the loop
-        # stops before its first round.
-        kth_bound = lb_sel[:, -1]
-        all_rounds = -(-n_rows // rs)
-        r2 = 0
-        while r2 < all_rounds:
-            kth = top_d[:, -1]
-            if tiered:
-                need = ((kth_bound * eps_factor_sq < kth)
-                        & ((r_main + r2) < budget_rounds))
+        def merge(top_d, top_p, cand_pos, d):
+            # 1-NN: argmin + strict improvement (ties keep incumbent)
+            if k == 1:
+                j = torch.argmin(d, dim=1, keepdim=True)
+                dj = d.gather(1, j)
+                better = dj < top_d
+                return (torch.where(better, dj, top_d),
+                        torch.where(better, cand_pos.gather(1, j), top_p))
+            # k-safety: a re-distanced candidate must not enter the list
+            # twice.
+            d = torch.where(dedup_mask(cand_pos, top_d, top_p), INF, d)
+            md = torch.cat([top_d, d], dim=1)
+            mp = torch.cat([top_p, cand_pos], dim=1)
+            # Stable sort: ties keep the lower column, so the incumbent wins.
+            vals, sel = torch.sort(md, dim=1, stable=True)
+            return vals[:, :k], mp.gather(1, sel[:, :k])
+
+        def tier_skip(skip_lb, would, mask, lbs):
+            # Candidates the exact engine would have checked but the tier
+            # skipped feed the achieved-bound tracker.
+            return torch.minimum(
+                skip_lb, torch.where(would & ~mask, lbs, INF).amin(dim=1))
+
+        def apply_round(top_d, top_p, reads, updates, cand_pos, d, mask):
+            d = torch.where(mask, d, INF)
+            improved = d.amin(dim=1) < top_d[:, -1]
+            top_d, top_p = merge(top_d, top_p, cand_pos, d)
+            return (top_d, top_p,
+                    reads + mask.sum(dim=1, dtype=torch.int32),
+                    updates + improved.to(torch.int32))
+
+        def read_back(flag) -> bool:
+            # The one host readback of a round: it waits for the device.
+            with trace.span("paris.engine.sync"):
+                return bool(flag)
+
+        r = 0
+        while r < n_rounds:
+            with trace.span("paris.engine.round"):
+                kth = top_d[:, -1]
+                if sort:  # joint early exit: every next bound >= its BSF
+                    head = lb_sel[:, r * rs]
+                    if tiered:
+                        go = ((r < budget_rounds)
+                              & (head * eps_factor_sq < kth)).any()
+                    else:
+                        go = (head < kth).any()
+                    if not read_back(go):
+                        break
+                lbs = _round_cols(lb_sel, r, rs, INF)
+                if tiered:
+                    would = lbs < kth[:, None]
+                    mask = ((lbs * eps_factor_sq[:, None] < kth[:, None])
+                            & (r < budget_rounds)[:, None])
+                    skip_lb = tier_skip(skip_lb, would, mask, lbs)
+                else:
+                    mask = lbs < kth[:, None]
+                if sort:
+                    cand_pos = view.positions(
+                        _round_cols(order, r, rs, 0))  # (Q, rs)
+                    # the "disk reads"
+                    d = view.distances(qs, cand_pos, impl, mask)
+                else:
+                    pos1 = view.positions(_round_rows(n_rows, r, rs, dev))
+                    d = view.distances(qs, pos1, impl, mask)
+                    cand_pos = pos1[None, :].expand(n_q, rs)
+                top_d, top_p, reads, updates = apply_round(
+                    top_d, top_p, reads, updates, cand_pos, d, mask)
+                r += 1
+        r_main = r
+
+        fb_r2 = None
+        if sort and select == "topk" and sel_len < n_rows:
+            # Exactness fallback: a query whose last *selected* bound still
+            # beats its BSF might have unselected qualifying candidates —
+            # scan the full row order with per-query (bound, need) masks,
+            # re-evaluated every round. In the common case no query needs
+            # it and the loop stops before its first round.
+            kth_bound = lb_sel[:, -1]
+            all_rounds = -(-n_rows // rs)
+            r2 = 0
+            while r2 < all_rounds:
+                with trace.span("paris.engine.fallback_round"):
+                    kth = top_d[:, -1]
+                    if tiered:
+                        need = ((kth_bound * eps_factor_sq < kth)
+                                & ((r_main + r2) < budget_rounds))
+                    else:
+                        need = kth_bound < kth
+                    if not read_back(need.any()):
+                        break
+                    lbs = _round_cols(lb, r2, rs, INF)
+                    pos1 = view.positions(_round_rows(n_rows, r2, rs, dev))
+                    # lbs >= kth_bound skips candidates the main loop
+                    # already had (everything strictly below the K-th
+                    # bound was selected); ties at the bound re-distance
+                    # harmlessly.
+                    if tiered:
+                        gate = lbs * eps_factor_sq[:, None] < kth[:, None]
+                    else:
+                        gate = lbs < kth[:, None]
+                    mask = gate & (lbs >= kth_bound[:, None]) & need[:, None]
+                    d = view.distances(qs, pos1, impl, mask)
+                    if tiered:
+                        would = ((lbs < kth[:, None])
+                                 & (lbs >= kth_bound[:, None]))
+                        skip_lb = tier_skip(skip_lb, would, mask, lbs)
+                    top_d, top_p, reads, updates = apply_round(
+                        top_d, top_p, reads, updates,
+                        pos1[None, :].expand(n_q, rs), d, mask)
+                    r2 += 1
+            fb_r2 = r2
+            r = r + r2
+
+        if tiered:
+            # Achieved squared error factor: the BSF over the smallest lower
+            # bound never distance-checked — (a) tier-skipped candidates
+            # (skip_lb), (b) the unprocessed tail of the selected list (its
+            # head bound, the frontier), (c) under select="topk", unselected
+            # rows the fallback never reached (charged only when it did not
+            # scan the whole row order). If that minimum still meets the BSF
+            # the answer is certified exact (factor 1.0).
+            kth_final = top_d[:, -1]
+            if r_main < n_rounds:
+                denom = torch.minimum(skip_lb, lb_sel[:, r_main * rs])
             else:
-                need = kth_bound < kth
-            if not bool(need.any()):
-                break
-            lbs = _round_cols(lb, r2, rs, INF)
-            pos1 = view.positions(_round_rows(n_rows, r2, rs, dev))
-            # lbs >= kth_bound skips candidates the main loop already had
-            # (everything strictly below the K-th bound was selected); ties
-            # at the bound re-distance harmlessly.
-            if tiered:
-                gate = lbs * eps_factor_sq[:, None] < kth[:, None]
-            else:
-                gate = lbs < kth[:, None]
-            mask = gate & (lbs >= kth_bound[:, None]) & need[:, None]
-            d = view.distances(qs, pos1, impl, mask)
-            if tiered:
-                would = (lbs < kth[:, None]) & (lbs >= kth_bound[:, None])
-                skip_lb = tier_skip(skip_lb, would, mask, lbs)
-            top_d, top_p, reads, updates = apply_round(
-                top_d, top_p, reads, updates,
-                pos1[None, :].expand(n_q, rs), d, mask)
-            r2 += 1
-        fb_r2 = r2
-        r = r + r2
+                denom = skip_lb
+            if fb_r2 is not None and fb_r2 < all_rounds:
+                denom = torch.minimum(denom, kth_bound)
+            one = torch.ones((), device=dev)
+            achieved_sq = torch.where(denom >= kth_final, one,
+                                      kth_final / denom)
+            return top_d, top_p, reads, updates, r, achieved_sq
 
-    if tiered:
-        # Achieved squared error factor: the BSF over the smallest lower
-        # bound never distance-checked — (a) tier-skipped candidates
-        # (skip_lb), (b) the unprocessed tail of the selected list (its
-        # head bound, the frontier), (c) under select="topk", unselected
-        # rows the fallback never reached (charged only when it did not
-        # scan the whole row order). If that minimum still meets the BSF
-        # the answer is certified exact (factor 1.0).
-        kth_final = top_d[:, -1]
-        if r_main < n_rounds:
-            denom = torch.minimum(skip_lb, lb_sel[:, r_main * rs])
-        else:
-            denom = skip_lb
-        if fb_r2 is not None and fb_r2 < all_rounds:
-            denom = torch.minimum(denom, kth_bound)
-        one = torch.ones((), device=dev)
-        achieved_sq = torch.where(denom >= kth_final, one, kth_final / denom)
-        return top_d, top_p, reads, updates, r, achieved_sq
-
-    return top_d, top_p, reads, updates, r
+        return top_d, top_p, reads, updates, r
 
 
 def _queries(store, queries) -> torch.Tensor:
@@ -572,10 +595,11 @@ def _pad_missing(top_d, top_p, k: int):
 def _run_engine(index: ParISIndex, qs: torch.Tensor, *, k: int,
                 round_size: int, leaf_cap: int, sort: bool, select: str,
                 impl: str, eps_factor_sq=None, budget_rounds=None) -> tuple:
+    with trace.span("paris.engine.view"):
+        view = _index_view(index, leaf_cap=leaf_cap)
     return _engine_core(
-        _index_view(index, leaf_cap=leaf_cap), qs, k=k,
-        round_size=round_size, sort=sort, select=select, impl=impl,
-        eps_factor_sq=eps_factor_sq, budget_rounds=budget_rounds)
+        view, qs, k=k, round_size=round_size, sort=sort, select=select,
+        impl=impl, eps_factor_sq=eps_factor_sq, budget_rounds=budget_rounds)
 
 
 def knn_batch_tiered(
@@ -1095,47 +1119,56 @@ def _exact_search_impl(
 ) -> SearchResult:
     n_series = index.num_series
     rs = round_size
-    q, qp = _query_paa(index, query)
-    bsf, bsfpos = approx_search(index, query, leaf_cap, impl)
-    bsfpos = bsfpos.to(torch.int32)
-    bpp = isax.padded_breakpoints(index.cardinality, index.device)
+    with trace.span("paris.single"):
+        with trace.span("paris.single.prep"):
+            q, qp = _query_paa(index, query)
+        with trace.span("paris.single.seed"):
+            bsf, bsfpos = approx_search(index, query, leaf_cap, impl)
+            bsfpos = bsfpos.to(torch.int32)
 
-    # --- LBC phase: one pass over the whole SAX array. ---
-    lb = ops.lower_bound_sq(qp, index.sax, bpp, index.series_length,
-                            impl=impl)
+        # --- LBC phase: one pass over the whole SAX array. ---
+        with trace.span("paris.single.bounds"):
+            bpp = isax.padded_breakpoints(index.cardinality, index.device)
+            lb = ops.lower_bound_sq(qp, index.sax, bpp, index.series_length,
+                                    impl=impl)
 
-    # --- Candidate list (sorted for ParIS+; SAX order for the ADS+ mode). ---
-    if sort:
-        order = torch.argsort(lb, stable=True)  # jnp.argsort is stable
-        lb_sorted = lb[order]
-    else:
-        order = torch.arange(n_series, device=index.device)
-        lb_sorted = lb
-    n_rounds = -(-n_series // rs)
-    order = _pad_to(order, n_rounds * rs, 0)
-    lb_sorted = _pad_to(lb_sorted, n_rounds * rs, INF)
+        # --- Candidate list (sorted for ParIS+; SAX order for the ADS+ mode). ---
+        n_rounds = -(-n_series // rs)
+        with trace.span("paris.single.sort"):
+            if sort:
+                order = torch.argsort(lb, stable=True)  # jnp.argsort is stable
+                lb_sorted = lb[order]
+            else:
+                order = torch.arange(n_series, device=index.device)
+                lb_sorted = lb
+            order = _pad_to(order, n_rounds * rs, 0)
+            lb_sorted = _pad_to(lb_sorted, n_rounds * rs, INF)
 
-    # --- RDC phase: rounds of fused gather + distance against one BSF. ---
-    reads = torch.tensor(leaf_cap, dtype=torch.int32, device=index.device)
-    updates = torch.zeros((), dtype=torch.int32, device=index.device)
-    r = 0
-    while r < n_rounds:
-        # A sorted list: everything past a pruned head is pruned too.
-        if sort and not bool(lb_sorted[r * rs] < bsf):
-            break
-        lbs = lb_sorted[r * rs:(r + 1) * rs]
-        mask = lbs < bsf
-        cand_pos = index.pos[order[r * rs:(r + 1) * rs]]
-        d = ops.euclid_sq_gather(q[None, :], index.raw, cand_pos,
-                                 impl=impl)[0]  # the "disk reads"
-        d = torch.where(mask, d, INF)
-        j = torch.argmin(d)
-        better = d[j] < bsf
-        bsf = torch.where(better, d[j], bsf)
-        bsfpos = torch.where(better, cand_pos[j], bsfpos)
-        reads = reads + mask.sum(dtype=torch.int32)
-        updates = updates + better.to(torch.int32)
-        r += 1
+        # --- RDC phase: rounds of fused gather + distance against one BSF. ---
+        reads = torch.tensor(leaf_cap, dtype=torch.int32, device=index.device)
+        updates = torch.zeros((), dtype=torch.int32, device=index.device)
+        r = 0
+        while r < n_rounds:
+            with trace.span("paris.single.round"):
+                # A sorted list: everything past a pruned head is pruned too.
+                if sort:
+                    with trace.span("paris.single.sync"):
+                        go = bool(lb_sorted[r * rs] < bsf)
+                    if not go:
+                        break
+                lbs = lb_sorted[r * rs:(r + 1) * rs]
+                mask = lbs < bsf
+                cand_pos = index.pos[order[r * rs:(r + 1) * rs]]
+                d = ops.euclid_sq_gather(q[None, :], index.raw, cand_pos,
+                                         impl=impl)[0]  # the "disk reads"
+                d = torch.where(mask, d, INF)
+                j = torch.argmin(d)
+                better = d[j] < bsf
+                bsf = torch.where(better, d[j], bsf)
+                bsfpos = torch.where(better, cand_pos[j], bsfpos)
+                reads = reads + mask.sum(dtype=torch.int32)
+                updates = updates + better.to(torch.int32)
+                r += 1
     return SearchResult(bsf, bsfpos, reads, updates, r)
 
 
