@@ -38,7 +38,10 @@ Phases, each of which raises (exit code 1) on a failed check:
                 beside its bound (the larger of bytes over 3.35 TB/s and
                 fp32 operations over 67 TFLOP/s, the H100 SXM peaks; both
                 counts from ``repro_torch.launch.roofline.kernel_cost``),
-                with the launch shape each ran at;
+                with the launch shape each ran at; ``smallest`` (the
+                engine's candidate selection, top 2^20 of (64, 2^24)) bit
+                for bit, beside the int64-key ``torch.topk`` that is its
+                plain version and its ``library_ms``;
   tuning      — the launch-shape table (``repro_torch.core.tuning``): the
                 committed table validates; for each registered kernel at a
                 moderate shape, every admitted lattice point's output equals
@@ -264,10 +267,13 @@ KERNEL_ROWS = {  # name -> (source, TPU kernel it replaces)
                              "src/repro/kernels/lower_bound.py:77"),
     "euclid_min": ("src/repro_torch/kernels/csrc/euclidean.cu",
                    "src/repro/kernels/euclidean.py:54"),
+    "smallest": ("src/repro_torch/kernels/csrc/select.cu",
+                 "none (the reference's jax.lax.top_k, "
+                 "src/repro/core/search.py:592)"),
 }
 # The kernels each driven path must launch.
 PATH_KERNELS = {
-    "full": ("paa_isax", "lower_bound_sq_batch", "euclid_sq"),
+    "full": ("paa_isax", "lower_bound_sq_batch", "euclid_sq", "smallest"),
     "baselines": ("lower_bound_sq", "euclid_sq", "euclid_min"),
     "classify": ("lower_bound_sq_batch", "euclid_sq"),
     "serve": ("paa_isax", "lower_bound_sq_batch", "euclid_sq"),
@@ -351,10 +357,11 @@ def launch_shape(name: str, q: int, n: int, dev) -> dict:
     return tuning.resolve_blocks(TUNED_AS[name], q=q, n=n, device=dev)
 
 
-def kernel_row(name, err, ms, plain_ms, cost, shape) -> dict:
+def kernel_row(name, err, ms, plain_ms, cost, shape, library_ms=None) -> dict:
     """One kernel's entry of the JSON line; ``launches`` is filled in later.
     ``cost`` is ``roofline.kernel_cost``'s bytes and operations at the
-    timed call, ``shape`` the launch shape it was timed at."""
+    timed call, ``shape`` the launch shape it was timed at, ``library_ms``
+    the time of the one PyTorch call that computes the same, if any."""
     n_bytes, n_ops = cost["bytes"], cost["ops"]
     b_ms, b_by = bound_ms(n_bytes, n_ops)
     src, replaces = KERNEL_ROWS[name]
@@ -364,7 +371,8 @@ def kernel_row(name, err, ms, plain_ms, cost, shape) -> dict:
         f"{shape}")
     return dict(name=name, route="cuda", source=src, replaces=replaces,
                 launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=None, shape=shape)
+                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+                shape=shape)
 
 
 def path_counts(path: str, counts=None) -> dict:
@@ -870,7 +878,7 @@ def phase_kernels(full: dict) -> list:
     import torch
 
     from repro_torch.core import isax
-    from repro_torch.core.search import _smallest, select_len
+    from repro_torch.core.search import select_len
     from repro_torch.kernels import ops
     from repro_torch.launch.roofline import kernel_cost
 
@@ -915,15 +923,25 @@ def phase_kernels(full: dict) -> list:
                     n_bp=bpp.numel()),
         launch_shape("lower_bound_sq_batch", n_q, n_series, dev))
 
-    # The engine's candidate selection between the two kernels: not a
-    # kernel of the port, timed to show where the search time goes.
+    # smallest: the engine's candidate selection, (Q, N) -> (Q, select_len).
+    # Its plain version is the int64-key torch.topk that the engine ran
+    # before the kernel, so it is the library yardstick too.
     rs = 4096
     sel = select_len(n_series, rs)
-    log(f"[engine] candidate selection (top {sel} of ({n_q}, {n_series}) "
-        f"int64 keys): {time_ms(lambda: _smallest(lb_k, sel), 3):.3f} ms")
+    order, sel_k = ops.smallest(lb_k, sel)
+    order_p, sel_p = ops.smallest(lb_k, sel, impl="ref")
+    same = torch.equal(order, order_p) and torch.equal(
+        sel_k.view(torch.int32), sel_p.view(torch.int32))
+    log(f"[kernel] smallest: top {sel} of ({n_q}, {n_series}) bitwise "
+        f"equal to its plain version: {same}")
+    expect(same, "smallest not bitwise equal to its plain version")
+    del order_p, sel_p, sel_k
+    topk_ms = time_ms(lambda: ops.smallest(lb_k, sel, impl="ref"), 3)
+    row("smallest", 0.0, time_ms(lambda: ops.smallest(lb_k, sel), 10),
+        topk_ms, kernel_cost("smallest", q=n_q, n=n_series, k=sel), {},
+        topk_ms)
 
     # euclid_sq: the first RDC round's (Q, 4096) candidates of every query.
-    order, _ = _smallest(lb_k, sel)
     del lb_k
     pos = index.pos[order[:, :rs].long()].contiguous()
     del order

@@ -257,7 +257,7 @@ def _local_exact_search(
                       for qp in qps])
     if shared_bsf and select == "topk":
         sel_len = min(max(n_local // 16, rs), n_local)
-        order, lb_sorted = _smallest(lb, sel_len)
+        order, lb_sorted = _smallest(lb, sel_len, impl)
         order = order.to(torch.int64)
     elif shared_bsf:
         sel_len = n_local
@@ -335,7 +335,7 @@ def _select(shard: DistIndex, qps: torch.Tensor, round_size: int,
     budget_rows = SELECT_BUDGET_VALUES // max(1, n_q * shard.series_length)
     sel_len = min(select_len(n_local, round_size),
                   max(round_size, budget_rows))
-    order, lb_sorted = _smallest(lb, sel_len)
+    order, lb_sorted = _smallest(lb, sel_len, impl)
     return lb, order.to(torch.int64), lb_sorted, sel_len
 
 

@@ -214,23 +214,17 @@ def select_len(n: int, round_size: int) -> int:
     return min(n, max(n // 16, 4 * round_size))
 
 
-def _smallest(lb: torch.Tensor, k: int) -> tuple:
+def _smallest(lb: torch.Tensor, k: int, impl: str = "auto") -> tuple:
     """The k smallest bounds per row, ascending, ties toward the lower column.
 
     ``lax.top_k`` in the reference breaks ties toward the lower index;
-    ``torch.topk`` promises no tie order. A non-negative float's bits are
-    monotone as an integer, so the int64 key ``(bits << 32) | column`` is
-    unique per row and orders exactly as (bound, column). Returns
-    ((Q, k) int32 columns, (Q, k) float32 bounds).
+    ``torch.topk`` promises no tie order. :func:`ops.smallest` orders by
+    (bound bits, column), exactly as the reference's unique keys do, on the
+    card by the selection kernels and on the CPU by ``torch.topk`` over
+    int64 ``(bits << 32) | column`` keys. Returns ((Q, k) int32 columns,
+    (Q, k) float32 bounds).
     """
-    key = lb.contiguous().view(torch.int32).to(torch.int64)
-    key <<= 32
-    key |= torch.arange(lb.shape[1], dtype=torch.int64, device=lb.device)
-    vals = torch.topk(key, k, dim=1, largest=False, sorted=True).values
-    del key
-    cols = (vals & 0xFFFFFFFF).to(torch.int32)
-    bounds = (vals >> 32).to(torch.int32).view(torch.float32)
-    return cols, bounds
+    return ops.smallest(lb, k, impl=impl)
 
 
 def dedup_mask(cand_pos: torch.Tensor, top_d: torch.Tensor,
@@ -420,7 +414,7 @@ def _engine_core(
         if sort:
             sel_len = select_len(n_rows, rs) if select == "topk" else n_rows
             with trace.span("paris.engine.select"):
-                order, lb_sel = _smallest(lb, sel_len)
+                order, lb_sel = _smallest(lb, sel_len, impl)
         else:
             sel_len = n_rows
             lb_sel = lb

@@ -32,7 +32,8 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parent / "build"
 UNITS = (("paa_isax.cu", ()),
          ("lower_bound.cu", ()),
          *(("lower_bound.cu", (f"-DPARIS_LB_W={w}",)) for w in (4, 8, 16, 32)),
-         ("euclidean.cu", ()))
+         ("euclidean.cu", ()),
+         ("select.cu", ()))
 SOURCES = tuple(dict.fromkeys(name for name, _ in UNITS))
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 NVCC_FLAGS = (ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -74,6 +75,8 @@ _SIGNATURES = {
                                 _I, _VP),
     # query, data, best key, B, n, stream
     "euclid_min_launch": (_VP, _VP, _VP, _L, _I, _VP),
+    # lb, cols, bounds, scratch, scratch words, Q, L, k, stream
+    "smallest_launch": (_VP, _VP, _VP, _VP, _L, _I, _L, _L, _VP),
 }
 
 
@@ -160,6 +163,8 @@ def load() -> ctypes.CDLL:
             fn = getattr(lib, fn_name)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
+        lib.smallest_scratch_words.argtypes = [_I, _L, _L]
+        lib.smallest_scratch_words.restype = ctypes.c_longlong
         lib.paris_cuda_error_string.argtypes = [ctypes.c_int]
         lib.paris_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

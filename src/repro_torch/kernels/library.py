@@ -1,4 +1,4 @@
-"""The six kernel entries as PyTorch operators: ``torch.ops.repro_torch.*``.
+"""The seven kernel entries as PyTorch operators: ``torch.ops.repro_torch.*``.
 
 A ``*_cuda`` wrapper hands raw pointers to ``ctypes``, so it cannot run on
 a fake tensor, and a tracer cannot see through it. Each entry is therefore
@@ -28,6 +28,7 @@ import torch
 from repro_torch.kernels import euclidean as _euclid
 from repro_torch.kernels import lower_bound as _lb
 from repro_torch.kernels import paa_isax as _pi
+from repro_torch.kernels import select as _select
 
 NAMESPACE = "repro_torch"
 
@@ -60,6 +61,9 @@ SCHEMAS = {
     "euclid_min": (
         "euclid_min(Tensor query, Tensor data) -> (Tensor, Tensor)",
         _euclid.euclid_min_cuda),
+    "smallest": (
+        "smallest(Tensor lb, int k) -> (Tensor, Tensor)",
+        _select.smallest_cuda),
 }
 
 _lib = torch.library.Library(NAMESPACE, "DEF")
@@ -107,6 +111,12 @@ def _euclid_fake(queries, raw, positions, *, threads=None,
 @torch.library.register_fake(f"{NAMESPACE}::euclid_min")
 def _euclid_min_fake(query, data):
     return _empty(data), _empty(data, dtype=torch.int32)
+
+
+@torch.library.register_fake(f"{NAMESPACE}::smallest")
+def _smallest_fake(lb, k):
+    return (_empty(lb, lb.shape[0], k, dtype=torch.int32),
+            _empty(lb, lb.shape[0], k))
 
 
 def _flops(op: str):

@@ -32,6 +32,7 @@ from repro_torch.kernels import library as _library  # noqa: F401
 from repro_torch.kernels import lower_bound as _lb
 from repro_torch.kernels import paa_isax as _pi
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import select as _select
 
 _OPS = torch.ops.repro_torch
 
@@ -43,6 +44,7 @@ KERNELS = {
     "lower_bound_sq_multi": (_lb, "multi_launches"),
     "euclid_sq": (_euclid, "launches"),
     "euclid_min": (_euclid, "min_launches"),
+    "smallest": (_select, "launches"),
 }
 
 
@@ -231,3 +233,15 @@ def euclid_min(
     if not _use_kernel(data, impl):
         return _ref.euclid_min(query, data)
     return _OPS.euclid_min(query.contiguous(), data)
+
+
+def smallest(lb: torch.Tensor, k: int, *, impl: str = "auto") -> tuple:
+    """(Q, L) bounds -> the k smallest a row, ascending, ties toward the
+    lower column: ((Q, k) int32 columns, (Q, k) float32 bounds).
+
+    The same bits on both paths; on the card one launch set of the
+    selection kernels (``csrc/select.cu``).
+    """
+    if not _use_kernel(lb, impl):
+        return _ref.smallest(lb, k)
+    return _OPS.smallest(lb.contiguous(), k)

@@ -9,7 +9,8 @@ and the three lower bounds). Every sum over the last axis uses
 ``isax.sum_last``, the reference's order, so on the CPU these functions
 match the JAX package's plain versions bit for bit; the ``euclid_sq``
 and ``euclid_min`` kernels sum in another order and are held to them with
-a tolerance.
+a tolerance. :func:`smallest` is the selection kernel's plain version, the
+engine's ``torch.topk`` over int64 keys.
 """
 
 from __future__ import annotations
@@ -168,3 +169,22 @@ def euclid_min(query: torch.Tensor, data: torch.Tensor) -> tuple:
     d = euclid_sq(query, data)
     i = torch.argmin(d)
     return d[i], i.to(torch.int32)
+
+
+def smallest(lb: torch.Tensor, k: int) -> tuple:
+    """The k smallest bounds per row, ascending, ties toward the lower column.
+
+    ``lax.top_k`` in the reference breaks ties toward the lower index;
+    ``torch.topk`` promises no tie order. A non-negative float's bits are
+    monotone as an integer, so the int64 key ``(bits << 32) | column`` is
+    unique per row and orders exactly as (bound, column). Returns
+    ((Q, k) int32 columns, (Q, k) float32 bounds).
+    """
+    key = lb.contiguous().view(torch.int32).to(torch.int64)
+    key <<= 32
+    key |= torch.arange(lb.shape[1], dtype=torch.int64, device=lb.device)
+    vals = torch.topk(key, k, dim=1, largest=False, sorted=True).values
+    del key
+    cols = (vals & 0xFFFFFFFF).to(torch.int32)
+    bounds = (vals >> 32).to(torch.int32).view(torch.float32)
+    return cols, bounds

@@ -23,7 +23,7 @@ For every cell this script:
   4. writes one JSON record per cell under ``experiments/dryrun_torch/``.
 
 The fake tensors are ``cuda`` tensors on every machine, so the trace
-counts the card's path: the six kernels through their fake
+counts the card's path: the seven kernels through their fake
 implementations (``kernels/library.py``), never their plain versions. On
 a PyTorch built without CUDA, :func:`main` starts itself again with
 ``launch/fake_cuda.py``'s stand-in preloaded. A dry-run never runs in a

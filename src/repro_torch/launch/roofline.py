@@ -8,7 +8,7 @@ counts what the cell's function runs instead: :class:`CostMode`, a
 and keeps
 
   * FLOPs — ``torch.utils.flop_counter``'s formulas (the registry
-    ``FlopCounterMode`` reads, which also holds the six kernel ops through
+    ``FlopCounterMode`` reads, which also holds the seven kernel ops through
     :func:`kernel_cost`), split by the dtype of the operands: bf16 / fp16
     products run on the tensor cores, fp32 ones and the kernels' fp32
     operations outside them (TF32 off, as ``chip_smoke.py`` sets it);
@@ -60,7 +60,7 @@ DTYPE_OPS_PER_S = {"bf16": BF16_OPS_PER_S, "fp32": FP32_OPS_PER_S}
 
 
 # ---------------------------------------------------------------------------
-# The six kernels' bytes and operations
+# The seven kernels' bytes and operations
 # ---------------------------------------------------------------------------
 
 def kernel_cost(name: str, **shape) -> dict:
@@ -85,7 +85,10 @@ def kernel_cost(name: str, **shape) -> dict:
         gathered rows, the queries, the positions and the (Q, R) output;
         3 operations a value;
       * ``euclid_min`` (``b`` rows of ``n``): the rows, the query and one
-        8-byte key; 3 operations a value.
+        8-byte key; 3 operations a value;
+      * ``smallest`` (``q`` rows of ``n`` bounds, ``k`` kept a row): the
+        bounds read once and the (Q, k) int32 columns and f32 bounds
+        written once; no fp32 arithmetic.
     """
     s = dict(shape)
     if name == "paa_isax":
@@ -116,6 +119,9 @@ def kernel_cost(name: str, **shape) -> dict:
     if name == "euclid_min":
         b, n = s["b"], s["n"]
         return dict(bytes=b * n * 4 + n * 4 + 8, ops=b * 3 * n)
+    if name == "smallest":
+        q, n, k = s["q"], s["n"], s["k"]
+        return dict(bytes=q * n * 4 + q * k * 8, ops=0)
     raise KeyError(f"unknown kernel {name!r}")
 
 
@@ -555,6 +561,9 @@ def kernel_cost_of_call(op: str, args, kwargs) -> dict:
     if op == "euclid_min":
         data = args[1]
         return kernel_cost("euclid_min", b=data.shape[0], n=data.shape[1])
+    if op == "smallest":
+        lb, k = args[0], args[1]
+        return kernel_cost("smallest", q=lb.shape[0], n=lb.shape[1], k=k)
     raise KeyError(f"unknown kernel op {op!r}")
 
 

@@ -1041,6 +1041,67 @@ def test_cuda_moe_forward_backward_replays_bitwise(cuda_device, no_tf32,
     assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
+# --- The candidate selection (csrc/select.cu) ---------------------------------
+
+
+def _selection_cases():
+    from test_torch_select import selection_cases  # a file without JAX
+
+    return selection_cases()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(_selection_cases()))
+def test_cuda_smallest_bitwise(cuda_device, name):
+    lb, k = _selection_cases()[name]
+    lb = torch.from_numpy(lb).to(cuda_device)
+    tops.reset_launch_counts()
+    cols, bounds = tops.smallest(lb, k)
+    torch.cuda.synchronize()
+    assert tops.launch_counts()["smallest"] == 1
+    want_cols, want_bounds = tops.smallest(lb, k, impl="ref")
+    assert torch.equal(cols, want_cols)
+    assert torch.equal(bounds.view(torch.int32), want_bounds.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_cuda_smallest_on_random_walk_bounds(cuda_device):
+    """The engine's own input: (64, 2^20) bounds of z-normed random walks
+    against 64 noisy members, k = 2^16."""
+    from repro_torch.core import build_index
+
+    gen = torch.Generator(device=cuda_device).manual_seed(26)
+    raw = torch.randn((1 << 20, 256), generator=gen,
+                      device=cuda_device).cumsum_(dim=1)
+    index = build_index(raw, device=cuda_device)
+    noise = torch.randn((64, 256), generator=gen, device=cuda_device)
+    qs = tx.znorm(raw[:64] + 0.25 * raw[:64].std(dim=1, keepdim=True) * noise)
+    del raw
+    bpp = tx.padded_breakpoints(index.cardinality, cuda_device)
+    lb = tops.lower_bound_sq_batch(tx.paa(qs, index.segments), index.sax,
+                                   bpp, index.series_length)
+    cols, bounds = tops.smallest(lb, 1 << 16)
+    want_cols, want_bounds = tops.smallest(lb, 1 << 16, impl="ref")
+    torch.cuda.synchronize()
+    assert torch.equal(cols, want_cols)
+    assert torch.equal(bounds, want_bounds)
+
+
+@pytest.mark.cuda
+def test_cuda_one_smallest_launch_set_per_batch_call(cuda_device):
+    from repro_torch.core import build_index
+    from repro_torch.core.search import exact_knn_batch
+
+    index = build_index(random_walk(6000, 128, seed=261), device=cuda_device)
+    queries = random_walk(8, 128, seed=262)
+    for calls in (1, 2):
+        tops.reset_launch_counts()
+        for _ in range(calls):
+            exact_knn_batch(index, queries, k=4, round_size=64)
+        torch.cuda.synchronize()
+        assert tops.launch_counts()["smallest"] == calls
+
+
 # --- The kernel operators (torch.ops.repro_torch) and the dry-run ---------
 
 
@@ -1050,6 +1111,7 @@ def _op_cases(dev):
     from repro_torch.kernels import euclidean as keu
     from repro_torch.kernels import lower_bound as klb
     from repro_torch.kernels import paa_isax as kpi
+    from repro_torch.kernels import select as ksel
 
     z = tx.znorm(_t(random_walk(3000, 256, seed=111))).to(dev)
     q = tx.znorm(_t(random_walk(9, 256, seed=112))).to(dev)
@@ -1078,13 +1140,16 @@ def _op_cases(dev):
                              keu.launches),
         "euclid_min": ((q[0].contiguous(), z), keu.euclid_min_cuda,
                        keu.min_launches),
+        "smallest": ((z[:9].contiguous(), 100), ksel.smallest_cuda,
+                     ksel.launches),
     }
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["paa_isax", "lower_bound_sq_batch",
                                   "lower_bound_sq", "lower_bound_sq_multi",
-                                  "euclid_sq_gather", "euclid_min"])
+                                  "euclid_sq_gather", "euclid_min",
+                                  "smallest"])
 def test_cuda_operator_equals_wrapper_and_counts_once(cuda_device, name):
     args, wrapper, counter = _op_cases(cuda_device)[name]
     want = wrapper(*args)

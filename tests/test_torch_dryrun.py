@@ -194,6 +194,7 @@ def _inputs():
             q=Q, n_pad=N, w=W, n_bp=257, blocks=3)),
         "euclid_sq_gather": ((queries, series, pos), dict(q=Q, r=R, n=L)),
         "euclid_min": ((queries[0], series), dict(b=N, n=L)),
+        "smallest": ((series[:Q].abs(), 7), dict(q=Q, n=L, k=7)),
     }
     return cases
 
@@ -211,13 +212,15 @@ def _plain(name, args):
                                        impl="ref"),
           "euclid_sq_gather": lambda *a: ops.euclid_sq_gather(*a,
                                                               impl="ref"),
-          "euclid_min": lambda *a: ops.euclid_min(*a, impl="ref")}[name]
+          "euclid_min": lambda *a: ops.euclid_min(*a, impl="ref"),
+          "smallest": lambda *a: ops.smallest(*a, impl="ref")}[name]
     return fn(*args)
 
 
 @pytest.mark.parametrize("name", ["paa_isax", "lower_bound_sq_batch",
                                   "lower_bound_sq", "lower_bound_sq_multi",
-                                  "euclid_sq_gather", "euclid_min"])
+                                  "euclid_sq_gather", "euclid_min",
+                                  "smallest"])
 def test_op_fake_output_and_flops(name):
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.utils.flop_counter import FlopCounterMode
