@@ -33,6 +33,12 @@ live on the store's device (the card unless the caller asks for the CPU).
     RDC loop (:func:`~repro_torch.core.search.packed_engine_args`).
   * the cold tier (``core.coldtier``) — :meth:`MutableIndex.demote` sends
     the folded base to disk; its summaries stay on the device.
+  * spans — under a profiler each k-NN search (``exact_knn_batch``,
+    ``knn_batch_tiered``) is one ``paris.live`` range holding
+    ``paris.live.pack`` (the packed view, cached or updated) and the
+    engine's own ``paris.engine`` ranges, or ``paris.live.merge`` (the
+    per-component engines and their merge); :meth:`MutableIndex.stats`
+    counts every search's path (``fused_calls``, ``component_calls``).
 
 Snapshots stay exact while later ones are built, which JAX's immutable
 arrays gave the reference for free: no published tensor is ever written.
@@ -54,7 +60,7 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import coldtier, durable, isax, tuning
+from repro_torch.core import coldtier, durable, isax, trace, tuning
 from repro_torch.core.block_cache import BlockCache
 from repro_torch.core.build_pipeline import (
     _stage2, keys_from_u64, keys_to_u64, merge_runs, refine_key,
@@ -557,6 +563,7 @@ class MutableIndex:
         self._compact = threading.Lock()
         self._commit = threading.Lock()  # manifests land in ticket order
         self._pack = threading.Lock()
+        self._count = threading.Lock()  # readers' call counters
         self._ticket_lock = threading.Lock()  # queue + offset/epoch alloc
         self._spill_queue: List[_SpillTicket] = []  # uncommitted, seq order
         self._spill_seq = 0
@@ -573,6 +580,7 @@ class MutableIndex:
             spill_queue_depth_max=0,
             pack_builds=0, pack_time=0.0, pack_time_max=0.0,
             pack_rows_repacked=0,
+            fused_calls=0, component_calls=0,
         )
 
     # ---------------------------------------------------------- durability
@@ -1131,24 +1139,25 @@ class MutableIndex:
         snapshot gets a scratch pack rather than regressing the shared
         buffers.
         """
-        packed = getattr(snap, "_packed", None)
-        if packed is not None:
-            return packed
-        t0 = time.perf_counter()
-        with self._pack:
+        with trace.span("paris.live.pack"):
             packed = getattr(snap, "_packed", None)
-            if packed is not None:  # lost the race; already built
+            if packed is not None:
                 return packed
-            packed, rows = self._packer.update(snap)
-            object.__setattr__(snap, "_packed", packed)
-        dt = time.perf_counter() - t0
-        with self._mutate:
-            s = self._stats
-            s["pack_builds"] += 1
-            s["pack_time"] += dt
-            s["pack_time_max"] = max(s["pack_time_max"], dt)
-            s["pack_rows_repacked"] += int(rows)
-        return packed
+            t0 = time.perf_counter()
+            with self._pack:
+                packed = getattr(snap, "_packed", None)
+                if packed is not None:  # lost the race; already built
+                    return packed
+                packed, rows = self._packer.update(snap)
+                object.__setattr__(snap, "_packed", packed)
+            dt = time.perf_counter() - t0
+            with self._mutate:
+                s = self._stats
+                s["pack_builds"] += 1
+                s["pack_time"] += dt
+                s["pack_time_max"] = max(s["pack_time_max"], dt)
+                s["pack_rows_repacked"] += int(rows)
+            return packed
 
     def _fused_engine_call(self, packed: PackedComponents, qs, *, k: int,
                            round_size: int, select: str, impl: str,
@@ -1159,6 +1168,7 @@ class MutableIndex:
         add ``eps_factor_sq``/``budget_rounds`` and the ``seed_d``/
         ``seed_p`` BSF seed.
         """
+        self._count_call("fused_calls")
         return packed_engine_args(
             packed.sax, packed.gpos, packed.block_len, packed.raw, qs,
             block=packed.block, series_length=packed.series_length,
@@ -1185,6 +1195,11 @@ class MutableIndex:
         if isinstance(fused, bool):
             return fused
         return len(comps) >= 2
+
+    def _count_call(self, path: str) -> None:
+        """One more search call down ``path`` (a counter of ``_stats``)."""
+        with self._count:
+            self._stats[path] += 1
 
     def _empty_answer(self, nq: int, k: int) -> tuple:
         return (torch.full((nq, k), INF, device=self.device),
@@ -1213,42 +1228,48 @@ class MutableIndex:
         against a from-scratch build over the concatenated data. Tensors
         on the store's device.
         """
-        snap = self._snapshot
-        qs = as_f32(queries, self.device)
-        comps = snap.components()
-        if not comps and not snap.cold:
-            return self._empty_answer(qs.shape[0], k)
-        if self._use_fused(fused, comps, kw.get("sort", True),
-                           bool(snap.cold)):
-            # Same kwarg surface as core.exact_knn_batch: an unknown key
-            # must fail here exactly like the per-component path would.
-            unknown = set(kw) - {"round_size", "impl", "select", "sort",
-                                 "leaf_cap", "stats"}
-            if unknown:
-                raise TypeError(
-                    f"unexpected keyword arguments: {sorted(unknown)}")
-            if k < 1:
-                raise ValueError(f"k must be >= 1, got {k}")
-            packed = self._packed_view(snap)
-            top_d, top_p, reads, updates, rounds = self._fused_engine_call(
-                packed, qs, k=min(k, packed.num_series),
-                round_size=kw.get("round_size", 4096),
-                select=kw.get("select", "topk"),
-                impl=kw.get("impl", "auto"))
-            top_d, top_p = _pad_missing(top_d, top_p, k)
-            if kw.get("stats", False):
-                return top_d, top_p, reads, updates, rounds
-            return top_d, top_p
-        ds, ps = [], []
-        for shard in snap.cold:
-            d, p = coldtier.cold_exact_knn_batch(shard, qs, k=k, **kw)
-            ds.append(d)
-            ps.append(torch.where(p >= 0, p + shard.base, NO_POS))
-        for index, off in comps:
-            d, p = exact_knn_batch(index, qs, k=k, **kw)
-            ds.append(d)
-            ps.append(torch.where(p >= 0, p + off, NO_POS))
-        return self._merged(ds, ps, k)
+        with trace.span("paris.live"):
+            snap = self._snapshot
+            qs = as_f32(queries, self.device)
+            comps = snap.components()
+            if not comps and not snap.cold:
+                return self._empty_answer(qs.shape[0], k)
+            if self._use_fused(fused, comps, kw.get("sort", True),
+                               bool(snap.cold)):
+                # Same kwarg surface as core.exact_knn_batch: an unknown
+                # key must fail here exactly like the per-component path
+                # would.
+                unknown = set(kw) - {"round_size", "impl", "select",
+                                     "sort", "leaf_cap", "stats"}
+                if unknown:
+                    raise TypeError(
+                        f"unexpected keyword arguments: {sorted(unknown)}")
+                if k < 1:
+                    raise ValueError(f"k must be >= 1, got {k}")
+                packed = self._packed_view(snap)
+                (top_d, top_p, reads, updates,
+                 rounds) = self._fused_engine_call(
+                    packed, qs, k=min(k, packed.num_series),
+                    round_size=kw.get("round_size", 4096),
+                    select=kw.get("select", "topk"),
+                    impl=kw.get("impl", "auto"))
+                top_d, top_p = _pad_missing(top_d, top_p, k)
+                if kw.get("stats", False):
+                    return top_d, top_p, reads, updates, rounds
+                return top_d, top_p
+            self._count_call("component_calls")
+            with trace.span("paris.live.merge"):
+                ds, ps = [], []
+                for shard in snap.cold:
+                    d, p = coldtier.cold_exact_knn_batch(shard, qs, k=k,
+                                                         **kw)
+                    ds.append(d)
+                    ps.append(torch.where(p >= 0, p + shard.base, NO_POS))
+                for index, off in comps:
+                    d, p = exact_knn_batch(index, qs, k=k, **kw)
+                    ds.append(d)
+                    ps.append(torch.where(p >= 0, p + off, NO_POS))
+                return self._merged(ds, ps, k)
 
     def knn_batch_tiered(
         self, queries, tier, k: int = 1, fused="auto",
@@ -1278,35 +1299,38 @@ class MutableIndex:
                 qs, k=k, fused=fused, round_size=round_size,
                 select=select, impl=impl)
             return d, p, np.zeros((nq,), np.float64)
-        if self._use_fused(fused, comps, True, bool(snap.cold)):
-            packed = self._packed_view(snap)
-            eps_f, budget = tier_arrays(tiers, self.device)
-            seed_d, seed_p = packed_seed(comps, qs)
-            top_d, top_p, _, _, _, ach_sq = self._fused_engine_call(
-                packed, qs, k=min(k, packed.num_series),
-                round_size=round_size, select=select, impl=impl,
-                eps_factor_sq=eps_f, budget_rounds=budget, seed_d=seed_d,
-                seed_p=seed_p)
-            top_d, top_p = _pad_missing(top_d, top_p, k)
-            return top_d, top_p, achieved_epsilon(ach_sq)
-        ds, ps = [], []
-        ach = np.zeros((nq,), np.float64)
-        for shard in snap.cold:  # lowest offsets first (tie stability)
-            d, p, a = coldtier.cold_knn_batch_tiered(
-                shard, qs, tiers, k=k, round_size=round_size,
-                select=select, impl=impl)
-            ds.append(d)
-            ps.append(torch.where(p >= 0, p + shard.base, NO_POS))
-            ach = np.maximum(ach, a)
-        for index, off in comps:
-            d, p, a = knn_batch_tiered(
-                index, qs, tiers, k=k, round_size=round_size,
-                select=select, impl=impl)
-            ds.append(d)
-            ps.append(torch.where(p >= 0, p + off, NO_POS))
-            ach = np.maximum(ach, a)
-        d, p = self._merged(ds, ps, k)
-        return d, p, ach
+        with trace.span("paris.live"):  # the exact tier has its own
+            if self._use_fused(fused, comps, True, bool(snap.cold)):
+                packed = self._packed_view(snap)
+                eps_f, budget = tier_arrays(tiers, self.device)
+                seed_d, seed_p = packed_seed(comps, qs)
+                top_d, top_p, _, _, _, ach_sq = self._fused_engine_call(
+                    packed, qs, k=min(k, packed.num_series),
+                    round_size=round_size, select=select, impl=impl,
+                    eps_factor_sq=eps_f, budget_rounds=budget,
+                    seed_d=seed_d, seed_p=seed_p)
+                top_d, top_p = _pad_missing(top_d, top_p, k)
+                return top_d, top_p, achieved_epsilon(ach_sq)
+            self._count_call("component_calls")
+            with trace.span("paris.live.merge"):
+                ds, ps = [], []
+                ach = np.zeros((nq,), np.float64)
+                for shard in snap.cold:  # lowest offsets first (ties)
+                    d, p, a = coldtier.cold_knn_batch_tiered(
+                        shard, qs, tiers, k=k, round_size=round_size,
+                        select=select, impl=impl)
+                    ds.append(d)
+                    ps.append(torch.where(p >= 0, p + shard.base, NO_POS))
+                    ach = np.maximum(ach, a)
+                for index, off in comps:
+                    d, p, a = knn_batch_tiered(
+                        index, qs, tiers, k=k, round_size=round_size,
+                        select=select, impl=impl)
+                    ds.append(d)
+                    ps.append(torch.where(p >= 0, p + off, NO_POS))
+                    ach = np.maximum(ach, a)
+                d, p = self._merged(ds, ps, k)
+                return d, p, ach
 
     def exact_search_batch(
         self, queries, cfg: SearchConfig = SearchConfig(), fused="auto"
@@ -1334,6 +1358,7 @@ class MutableIndex:
                 select=cfg.select, impl=cfg.impl)
             return SearchResult(top_d[:, 0], top_p[:, 0], reads, updates,
                                 rounds)
+        self._count_call("component_calls")
         pairs = [(shard.base,
                   coldtier.cold_exact_search_batch(shard, qs, cfg))
                  for shard in snap.cold]
@@ -1358,11 +1383,21 @@ class MutableIndex:
 
     # -------------------------------------------------------------- stats
     def stats(self) -> dict:
-        """Counter snapshot: appends, compactions, spills, component counts."""
-        with self._mutate:
+        """Counter snapshot: appends, compactions, spills, component counts.
+
+        ``live_components`` counts the snapshot's non-empty in-memory
+        components; ``packed_rows`` is the row count (N_pad, dead capacity
+        and block pads included) of the snapshot's packed view, 0 where
+        no search has built one.
+        """
+        with self._mutate, self._count:
             s = dict(self._stats)
         snap = self._snapshot
+        packed = getattr(snap, "_packed", None)
         s.update(
+            live_components=sum(1 for ix, _ in snap.components()
+                                if ix.num_series),
+            packed_rows=0 if packed is None else int(packed.sax.shape[0]),
             num_series=snap.num_series,
             num_deltas=len(snap.deltas),
             num_runs=len(snap.runs),
