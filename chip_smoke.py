@@ -270,10 +270,15 @@ KERNEL_ROWS = {  # name -> (source, TPU kernel it replaces)
     "smallest": ("src/repro_torch/kernels/csrc/select.cu",
                  "none (the reference's jax.lax.top_k, "
                  "src/repro/core/search.py:592)"),
+    "select": ("src/repro_torch/kernels/csrc/select.cu",
+               "none (the engine's phase 1 of smallest)"),
+    "order_range": ("src/repro_torch/kernels/csrc/select.cu",
+                    "none (the engine's phase 2 of smallest)"),
 }
 # The kernels each driven path must launch.
 PATH_KERNELS = {
-    "full": ("paa_isax", "lower_bound_sq_batch", "euclid_sq", "smallest"),
+    "full": ("paa_isax", "lower_bound_sq_batch", "euclid_sq", "select",
+             "order_range"),
     "baselines": ("lower_bound_sq", "euclid_sq", "euclid_min"),
     "classify": ("lower_bound_sq_batch", "euclid_sq"),
     "serve": ("paa_isax", "lower_bound_sq_batch", "euclid_sq"),
@@ -878,7 +883,8 @@ def phase_kernels(full: dict) -> list:
     import torch
 
     from repro_torch.core import isax
-    from repro_torch.core.search import select_len
+    from repro_torch.core.search import (PREFIX_GROWTH, CandidateList,
+                                         select_len)
     from repro_torch.kernels import ops
     from repro_torch.launch.roofline import kernel_cost
 
@@ -935,11 +941,51 @@ def phase_kernels(full: dict) -> list:
     log(f"[kernel] smallest: top {sel} of ({n_q}, {n_series}) bitwise "
         f"equal to its plain version: {same}")
     expect(same, "smallest not bitwise equal to its plain version")
-    del order_p, sel_p, sel_k
+    del order_p, sel_p
     topk_ms = time_ms(lambda: ops.smallest(lb_k, sel, impl="ref"), 3)
     row("smallest", 0.0, time_ms(lambda: ops.smallest(lb_k, sel), 10),
         topk_ms, kernel_cost("smallest", q=n_q, n=n_series, k=sel), {},
         topk_ms)
+
+    # select and order_range: the engine's two phases of the same list. The
+    # row of order_range is the list's first prefix, what a batch that ends
+    # in one round orders; its first extension is logged beside it.
+    got = ops.select(lb_k, sel)
+    plain = ops.select(lb_k, sel, impl="ref")
+    expect(all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(got, plain)),
+           "select not bitwise equal to its plain version")
+    del plain
+    row("select", 0.0, time_ms(lambda: ops.select(lb_k, sel), 10),
+        time_ms(lambda: ops.select(lb_k, sel, impl="ref"), 3),
+        kernel_cost("select", q=n_q, n=n_series, k=sel), {})
+    cols_s, bounds_s, _ = got
+    del got
+    first = CandidateList.first_prefix(sel, rs)
+    part = ops.order_range(bounds_s, cols_s, 0, first)
+    plain = ops.order_range(bounds_s, cols_s, 0, first, impl="ref")
+    # the first extension, [2^15, 2^17) at the full size
+    ext = (min(first, sel // 2), min(PREFIX_GROWTH * first, sel))
+    cut = (sel_k[:, ext[0] - 1], order[:, ext[0] - 1])  # rank lo - 1
+    part_x = ops.order_range(bounds_s, cols_s, *ext, *cut)
+    same = (torch.equal(part[0], plain[0])
+            and torch.equal(part[1].view(torch.int32),
+                            plain[1].view(torch.int32))
+            and torch.equal(part_x[0], order[:, ext[0]:ext[1]])
+            and torch.equal(part_x[1], sel_k[:, ext[0]:ext[1]]))
+    ext_ms = time_ms(lambda: ops.order_range(bounds_s, cols_s, *ext, *cut),
+                     10)
+    log(f"[kernel] order_range: ranks [0, {first}) and [{ext[0]}, {ext[1]})"
+        f" of the selected {sel} bitwise equal to their plain version and "
+        f"to smallest: {same}; [{ext[0]}, {ext[1]}) in {ext_ms:.4f} ms")
+    expect(same, "order_range not bitwise equal to its plain version")
+    del plain, part, part_x, sel_k
+    row("order_range", 0.0,
+        time_ms(lambda: ops.order_range(bounds_s, cols_s, 0, first), 10),
+        time_ms(lambda: ops.order_range(bounds_s, cols_s, 0, first,
+                                        impl="ref"), 3),
+        kernel_cost("order_range", q=n_q, n=sel, m=first), {})
+    del cols_s, bounds_s
 
     # euclid_sq: the first RDC round's (Q, 4096) candidates of every query.
     del lb_k

@@ -214,6 +214,95 @@ def select_len(n: int, round_size: int) -> int:
     return min(n, max(n // 16, 4 * round_size))
 
 
+# The candidate list is ordered lazily: first the entries of at least
+# FIRST_PREFIX_ROUNDS rounds and at least 1/FIRST_PREFIX_SHARE of the list,
+# then, each time a round needs more, PREFIX_GROWTH times as many. Every
+# ordering reads the whole list, so the first one sorts a share of it that
+# costs a fraction of that read and spares a loop of a few rounds the
+# reread of an extension.
+FIRST_PREFIX_ROUNDS = 2
+FIRST_PREFIX_SHARE = 32
+PREFIX_GROWTH = 4
+
+
+class CandidateList:
+    """Each query's ``sel_len`` smallest bounds, put in order lazily.
+
+    What the round loop reads of the reference's sorted ``top_k`` list,
+    ties toward the lower column: round r's columns and bounds, the head
+    bound of round r, and the last selected bound. :func:`ops.select`
+    picks the entries, in column order, and each row's last (the k-th
+    smallest) bound; :func:`ops.order_range` sorts a prefix of them, first
+    :meth:`first_prefix` entries, then ``PREFIX_GROWTH`` times the prefix
+    whenever a round reaches past it. Each prefix is a contiguous
+    rank range of one total order, so the entries read are those of the
+    whole sorted list. The host decides every extension from the round
+    number alone: the list reads nothing back. An extension runs under a
+    ``paris.engine.select.extend`` span inside ``paris.engine.select``.
+    """
+
+    def __init__(self, lb: torch.Tensor, sel_len: int, round_size: int,
+                 impl: str):
+        self.sel_len = sel_len
+        self.round_size = round_size
+        self._impl = impl
+        self._cols, self._bounds, self.last = ops.select(lb, sel_len,
+                                                         impl=impl)
+        self._parts = []  # (lo, (Q, hi - lo) columns, bounds), by rank
+        self.ordered = 0
+        self._order(self.first_prefix(sel_len, round_size))
+
+    @staticmethod
+    def first_prefix(sel_len: int, round_size: int) -> int:
+        """Entries ordered right after the select: whole rounds, at least
+        ``FIRST_PREFIX_ROUNDS`` of them and 1/``FIRST_PREFIX_SHARE`` of the
+        list, never past its end."""
+        n = max(FIRST_PREFIX_ROUNDS * round_size,
+                sel_len // FIRST_PREFIX_SHARE)
+        return min(sel_len, -(-n // round_size) * round_size)
+
+    def _order(self, hi: int) -> None:
+        prev = ((self._parts[-1][2][:, -1], self._parts[-1][1][:, -1])
+                if self._parts else (None, None))
+        cols, bounds = ops.order_range(self._bounds, self._cols, self.ordered,
+                                       hi, *prev, impl=self._impl)
+        self._parts.append((self.ordered, cols, bounds))
+        self.ordered = hi
+
+    def _reach(self, end: int) -> None:
+        """Order at least the first ``end`` entries (all, past the end)."""
+        if end <= self.ordered or self.ordered == self.sel_len:
+            return
+        rs = self.round_size
+        with trace.span("paris.engine.select"):
+            with trace.span("paris.engine.select.extend"):
+                self._order(min(self.sel_len,
+                                max(-(-end // rs) * rs,
+                                    PREFIX_GROWTH * self.ordered)))
+
+    def _part(self, i: int) -> tuple:
+        for part in reversed(self._parts):
+            if part[0] <= i:
+                return part
+        raise IndexError(i)
+
+    def head(self, r: int) -> torch.Tensor:
+        """(Q,) bound of round r's first entry (r * round_size < sel_len)."""
+        i = r * self.round_size
+        self._reach(i + 1)
+        lo, _, bounds = self._part(i)
+        return bounds[:, i - lo]
+
+    def round(self, r: int) -> tuple:
+        """Round r's ((Q, rs) columns, (Q, rs) bounds), padded past the
+        list's end with column 0 and +inf."""
+        rs = self.round_size
+        self._reach((r + 1) * rs)
+        lo, cols, bounds = self._part(r * rs)
+        return (_cols(cols, r * rs - lo, rs, 0),
+                _cols(bounds, r * rs - lo, rs, INF))
+
+
 def _smallest(lb: torch.Tensor, k: int, impl: str = "auto") -> tuple:
     """The k smallest bounds per row, ascending, ties toward the lower column.
 
@@ -320,14 +409,20 @@ def _index_view(index: ParISIndex, *, leaf_cap: int) -> EngineView:
     )
 
 
-def _round_cols(x: torch.Tensor, r: int, rs: int, fill) -> torch.Tensor:
-    """Columns [r*rs, (r+1)*rs) of a (Q, L) tensor, padded with ``fill``."""
-    piece = x[:, r * rs:(r + 1) * rs]
-    short = rs - piece.shape[1]
+def _cols(x: torch.Tensor, start: int, width: int, fill) -> torch.Tensor:
+    """Columns [start, start + width) of a (Q, L) tensor, padded with
+    ``fill`` past its end."""
+    piece = x[:, start:start + width]
+    short = width - piece.shape[1]
     if short > 0:
         piece = torch.cat([piece, piece.new_full((x.shape[0], short), fill)],
                           dim=1)
     return piece
+
+
+def _round_cols(x: torch.Tensor, r: int, rs: int, fill) -> torch.Tensor:
+    """Columns [r*rs, (r+1)*rs) of a (Q, L) tensor, padded with ``fill``."""
+    return _cols(x, r * rs, rs, fill)
 
 
 def _round_rows(n_rows: int, r: int, rs: int, device) -> torch.Tensor:
@@ -414,10 +509,9 @@ def _engine_core(
         if sort:
             sel_len = select_len(n_rows, rs) if select == "topk" else n_rows
             with trace.span("paris.engine.select"):
-                order, lb_sel = _smallest(lb, sel_len, impl)
+                cands = CandidateList(lb, sel_len, rs, impl)
         else:
             sel_len = n_rows
-            lb_sel = lb
         n_rounds = -(-sel_len // rs)
 
         def merge(top_d, top_p, cand_pos, d):
@@ -461,7 +555,7 @@ def _engine_core(
             with trace.span("paris.engine.round"):
                 kth = top_d[:, -1]
                 if sort:  # joint early exit: every next bound >= its BSF
-                    head = lb_sel[:, r * rs]
+                    head = cands.head(r)
                     if tiered:
                         go = ((r < budget_rounds)
                               & (head * eps_factor_sq < kth)).any()
@@ -469,7 +563,10 @@ def _engine_core(
                         go = (head < kth).any()
                     if not read_back(go):
                         break
-                lbs = _round_cols(lb_sel, r, rs, INF)
+                if sort:
+                    cand_rows, lbs = cands.round(r)
+                else:
+                    lbs = _round_cols(lb, r, rs, INF)
                 if tiered:
                     would = lbs < kth[:, None]
                     mask = ((lbs * eps_factor_sq[:, None] < kth[:, None])
@@ -478,8 +575,7 @@ def _engine_core(
                 else:
                     mask = lbs < kth[:, None]
                 if sort:
-                    cand_pos = view.positions(
-                        _round_cols(order, r, rs, 0))  # (Q, rs)
+                    cand_pos = view.positions(cand_rows)  # (Q, rs)
                     # the "disk reads"
                     d = view.distances(qs, cand_pos, impl, mask)
                 else:
@@ -498,7 +594,7 @@ def _engine_core(
             # scan the full row order with per-query (bound, need) masks,
             # re-evaluated every round. In the common case no query needs
             # it and the loop stops before its first round.
-            kth_bound = lb_sel[:, -1]
+            kth_bound = cands.last
             all_rounds = -(-n_rows // rs)
             r2 = 0
             while r2 < all_rounds:
@@ -544,7 +640,7 @@ def _engine_core(
             # the answer is certified exact (factor 1.0).
             kth_final = top_d[:, -1]
             if r_main < n_rounds:
-                denom = torch.minimum(skip_lb, lb_sel[:, r_main * rs])
+                denom = torch.minimum(skip_lb, cands.head(r_main))
             else:
                 denom = skip_lb
             if fb_r2 is not None and fb_r2 < all_rounds:

@@ -77,6 +77,12 @@ _SIGNATURES = {
     "euclid_min_launch": (_VP, _VP, _VP, _L, _I, _VP),
     # lb, cols, bounds, scratch, scratch words, Q, L, k, stream
     "smallest_launch": (_VP, _VP, _VP, _VP, _L, _I, _L, _L, _VP),
+    # lb, cols, bounds, kth, scratch, scratch words, Q, L, k, stream
+    "select_launch": (_VP, _VP, _VP, _VP, _VP, _L, _I, _L, _L, _VP),
+    # list bounds, list cols, cut bounds, cut cols, out cols, out bounds,
+    # scratch, scratch words, Q, L, hi, n, stream
+    "order_range_launch": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _L, _I, _L,
+                           _L, _L, _VP),
 }
 
 
@@ -163,8 +169,12 @@ def load() -> ctypes.CDLL:
             fn = getattr(lib, fn_name)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
-        lib.smallest_scratch_words.argtypes = [_I, _L, _L]
-        lib.smallest_scratch_words.restype = ctypes.c_longlong
+        for fn_name, argtypes in (("smallest_scratch_words", [_I, _L, _L]),
+                                  ("select_scratch_words", [_I, _L]),
+                                  ("order_range_scratch_words",
+                                   [_I, _L, _L])):
+            getattr(lib, fn_name).argtypes = argtypes
+            getattr(lib, fn_name).restype = ctypes.c_longlong
         lib.paris_cuda_error_string.argtypes = [ctypes.c_int]
         lib.paris_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

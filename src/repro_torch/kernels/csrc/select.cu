@@ -1,12 +1,20 @@
-// smallest: (Q, L) f32 bounds -> the k smallest of each row, ascending, ties
-// toward the lower column: ((Q, k) int32 columns, (Q, k) f32 bounds).
+// The candidate selection: (Q, L) f32 bounds -> the k smallest of each row,
+// ties toward the lower column. Three C entries share its kernels:
+//   smallest_launch      the k smallest, ascending: ((Q, k) int32 columns,
+//                        (Q, k) f32 bounds);
+//   select_launch        the same k pairs in column order, unsorted, and
+//                        each row's k-th smallest bound (the engine's
+//                        phase 1: what the exactness fallback needs);
+//   order_range_launch   ranks [lo, hi) of such a column-order list in
+//                        (bound bits, column) order (phase 2: the engine
+//                        orders only the prefix its round loop reaches).
 //
 // Replaces the TPU kernel: none. The reference selects its candidate list
 // with jax.lax.top_k (repro/core/search.py:592), which XLA lowers itself.
 // Added because torch.topk over int64 keys (bits << 32) | column, the plain
 // version (kernels/ref.py::smallest), builds an 8.6 GB key tensor at (64,
-// 2^24) and takes 61 ms a batch to select over and sort 8-byte keys; this
-// op gives its answer bit for bit.
+// 2^24) and takes 61 ms a batch to select over and sort 8-byte keys; these
+// entries give its answers bit for bit.
 //
 // Keys. A bound's 32 bits, read as a signed integer, order the int64 key's
 // high half; u = bits ^ 0x80000000 orders the same way as an unsigned
@@ -15,7 +23,8 @@
 // k - count(u < T) columns with u == T, where T is the k-th smallest u.
 //
 // Bound on the H100: memory. At Q = 64, L = 2^24, k = 2^20 one read of the
-// bounds is 4.29 GB and the output 0.54 GB: 1.44 ms at 3.35 TB/s.
+// bounds is 4.29 GB and the output 0.54 GB: 1.44 ms at 3.35 TB/s. A range
+// of a (Q, k) list reads its k bounds (0.27 GB) and writes hi - lo pairs.
 //
 // Design. No int64 tensor and no host readback; every size is known before
 // the launch, so the wrapper allocates one int32 scratch and the C entry
@@ -24,17 +33,16 @@
 //      row in chunks of kChunk bounds, one block a (chunk, row), counts the
 //      digit of the bounds that share the prefix found so far into a
 //      shared-memory histogram and adds it to the row's; a one-block-a-row
-//      kernel then finds the digit where the k-th key falls. The first pass
-//      also takes each row's least u. The last pass keeps each chunk's
-//      histogram and its count of bounds below the 22-bit prefix, so that
-//      the last find kernel knows, per chunk, how many bounds lie below T
-//      and how many equal it, and scans them into each chunk's output
-//      offset and its quota of ties.
+//      kernel then finds the digit where the k-th key falls. The first pass also takes each row's least u. The
+//      last pass keeps each chunk's histogram and its count of bounds below
+//      the 22-bit prefix, so that the last find kernel knows, per chunk,
+//      how many bounds lie below T and how many equal it, and scans them
+//      into each chunk's output offset and its quota of ties.
 //   2. One stable compaction: each block writes its chunk's (u, column)
 //      pairs with u < T, and the first `quota` with u == T, in column order
 //      (ballots and a scan over the block's warps), at its chunk's offset.
 //      A chunk with nothing to write reads nothing.
-//   3. A stable LSD radix sort of each row's k pairs by u, 8 bits a pass,
+//   3. A stable LSD radix sort of each row's pairs by u, 8 bits a pass,
 //      over only the bits below the highest bit where the row's least u
 //      and T differ (above it every selected key agrees). A pass counts each
 //      tile's digits, scans the (digit, tile) counts of the row, and
@@ -46,7 +54,14 @@
 //      outputs so that the last pass a row needs lands in the outputs,
 //      where keys are stored as float bits.
 // With k == L (a full sort) step 1 only takes each row's least and largest
-// u, and step 2 copies the row.
+// u, and step 2 copies the row. select_launch stops after step 2 and
+// writes T. order_range_launch runs all three on the list with k = hi, its
+// entries' columns taken from the list, and drops ranks below lo from the
+// compaction: those are the pairs (u, column) <= the rank lo - 1 pair,
+// which the caller passes (the last entry of the prefix it already holds),
+// so that no state is kept between calls. The last find kernel subtracts
+// each chunk's count of them, counted in pass 3, from its output offset,
+// and the sort starts from the bits where that pair's u and T differ.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -94,30 +109,54 @@ constexpr int kMeta = 8;
 
 // The int32 scratch, in words: the zeroed head (meta, the two row
 // histograms), then the per-chunk tables, the sort's counts and the
-// ping-pong pairs.
+// ping-pong pairs (n a row: the pairs the sort orders; none for
+// select_launch, which does not sort).
 struct Layout {
   long long nch, tiles;
   long long meta, hist1, hist2, zeroed;
-  long long chist, lt, cmeta, counts, keys, vals, total;
+  long long chist, lt, lo, cmeta, counts, keys, vals, total;
 };
 
-Layout layout(long long Q, long long L, long long k) {
+Layout layout(long long Q, long long L, long long n) {
   Layout a;
   a.nch = (L + kChunk - 1) / kChunk;
-  a.tiles = (k + kSortTile - 1) / kSortTile;
+  a.tiles = (n + kSortTile - 1) / kSortTile;
   a.meta = 0;
   a.hist1 = a.meta + Q * kMeta;
   a.hist2 = a.hist1 + Q * kBins1;
   a.zeroed = a.hist2 + Q * kBins2;
   a.chist = a.zeroed;
   a.lt = a.chist + Q * a.nch * kBins3;
-  a.cmeta = a.lt + Q * a.nch;
+  a.lo = a.lt + Q * a.nch;
+  a.cmeta = a.lo + Q * a.nch;
   a.counts = a.cmeta + Q * a.nch * 3;
   a.keys = a.counts + Q * kRadix * a.tiles;
-  a.vals = a.keys + Q * k;
-  a.total = a.vals + Q * k;
+  a.vals = a.keys + Q * n;
+  a.total = a.vals + Q * n;
   return a;
 }
+
+// The rank lo - 1 pair of an order_range call: the pairs at or below it
+// in (u, column) order are the ranks below lo, which the call drops. Off
+// where the call passes none (lo == 0, and the other entries).
+struct Cut {
+  bool on;
+  uint32_t u;
+  int32_t col;
+
+  __device__ __forceinline__ Cut(const uint32_t* bits, const int32_t* cols,
+                                 int q)
+      : on(bits != nullptr),
+        u(bits != nullptr ? bits[q] ^ kFlip : 0u),
+        col(bits != nullptr ? cols[q] : 0) {}
+
+  // Whether the pair (v, *col_of) is dropped; reads the column only on a
+  // tie with the cut's u.
+  __device__ __forceinline__ bool below(uint32_t v,
+                                        const int32_t* col_of) const {
+    return on && (v < u || (v == u && __ldg(col_of) <= col));
+  }
+};
 
 // Exclusive prefix of v over the block's threads, in thread order; the
 // block's total to *total when given. s holds 33 words; every thread calls.
@@ -246,45 +285,64 @@ sel_mid_kernel(const uint32_t* __restrict__ lb, long long L,
 }
 
 // Pass 3: per chunk, the histogram of u's low 10 bits among the bounds
-// whose top 22 bits are the prefix, and the count of bounds below it.
+// whose top 22 bits are the prefix, and the count of bounds below it; for
+// a range (kRange with a previous pair), the count of pairs at or below
+// that pair.
+template <bool kRange>
 __global__ void __launch_bounds__(kSelThreads)
-sel_low_kernel(const uint32_t* __restrict__ lb, long long L, long long nch,
-               const uint32_t* __restrict__ meta, uint32_t* __restrict__ chist,
-               uint32_t* __restrict__ lt) {
+sel_low_kernel(const uint32_t* __restrict__ lb,
+               const int32_t* __restrict__ cols, long long L, long long nch,
+               const uint32_t* __restrict__ meta,
+               const uint32_t* __restrict__ cut_bits,
+               const int32_t* __restrict__ cut_cols,
+               uint32_t* __restrict__ chist, uint32_t* __restrict__ lt,
+               uint32_t* __restrict__ lo) {
   __shared__ uint32_t h[kBins3];
-  __shared__ uint32_t s_lt[kSelWarps];
+  __shared__ uint32_t s_lt[kSelWarps], s_lo[kSelWarps];
   const int q = blockIdx.y;
   const long long c = blockIdx.x;
   for (int i = threadIdx.x; i < kBins3; i += kSelThreads) h[i] = 0;
   __syncthreads();
   const uint32_t p = meta[q * kMeta + kPrefix];
   const uint32_t* row = lb + (long long)q * L;
+  const int32_t* crow = kRange ? cols + (long long)q * L : nullptr;
+  const Cut cut(kRange ? cut_bits : nullptr, cut_cols, q);
   const long long s = c * kChunk;
   const long long e = min(s + kChunk, L);
-  uint32_t below = 0;
+  uint32_t below = 0, n_lo = 0;
   for (long long base = s; base < e; base += kSelTile) {
     uint32_t v[kSelUnroll];
     load_step(row, base, e, v);
 #pragma unroll
     for (int j = 0; j < kSelUnroll; ++j) {
-      if (base + j * kSelThreads + threadIdx.x < e) {
+      const long long i = base + j * kSelThreads + threadIdx.x;
+      if (i < e) {
         const uint32_t top = v[j] >> 10;
         if (top == p)
           atomicAdd(&h[v[j] & (kBins3 - 1)], 1u);
         else
           below += top < p;
+        if (kRange) n_lo += cut.below(v[j], crow + i);
       }
     }
   }
   below = __reduce_add_sync(kFull, below);
-  if ((threadIdx.x & 31) == 0) s_lt[threadIdx.x >> 5] = below;
+  if (kRange) n_lo = __reduce_add_sync(kFull, n_lo);
+  if ((threadIdx.x & 31) == 0) {
+    s_lt[threadIdx.x >> 5] = below;
+    s_lo[threadIdx.x >> 5] = n_lo;
+  }
   __syncthreads();
   uint32_t* out = chist + ((long long)q * nch + c) * kBins3;
   for (int i = threadIdx.x; i < kBins3; i += kSelThreads) out[i] = h[i];
   if (threadIdx.x < 32) {
-    below = __reduce_add_sync(
-        kFull, threadIdx.x < kSelWarps ? s_lt[threadIdx.x] : 0u);
-    if (threadIdx.x == 0) lt[(long long)q * nch + c] = below;
+    const bool w = threadIdx.x < kSelWarps;
+    below = __reduce_add_sync(kFull, w ? s_lt[threadIdx.x] : 0u);
+    n_lo = __reduce_add_sync(kFull, w ? s_lo[threadIdx.x] : 0u);
+    if (threadIdx.x == 0) {
+      lt[(long long)q * nch + c] = below;
+      if (kRange) lo[(long long)q * nch + c] = n_lo;
+    }
   }
 }
 
@@ -320,13 +378,27 @@ sel_find_kernel(const uint32_t* __restrict__ hist, uint32_t* __restrict__ meta,
   }
 }
 
+// The sort passes a row needs for keys in [least, t]: none if `sort` is
+// off (the compaction then writes the outputs); T to kth when given.
+__device__ __forceinline__ void set_t(uint32_t* m, uint32_t least,
+                                      uint32_t t, bool sort, uint32_t* kth) {
+  const int bits = least == t ? 0 : 32 - __clz(least ^ t);
+  m[kT] = t;
+  m[kPasses] = sort ? (bits + kRadixBits - 1) / kRadixBits : 0;
+  if (kth) *kth = t ^ kFlip;
+}
+
 // After pass 3: T; per chunk, its output offset, its quota of bounds equal
 // to T (the ties left after the chunks before it, in column order) and its
-// count of pairs to write; the sort passes the row needs.
+// count of pairs to write, less the pairs at or below the cut (lo, when
+// given); the sort passes the row needs.
 __global__ void __launch_bounds__(kBins3)
 sel_last_kernel(const uint32_t* __restrict__ chist,
-                const uint32_t* __restrict__ lt, uint32_t* __restrict__ cmeta,
-                uint32_t* __restrict__ meta, long long nch) {
+                const uint32_t* __restrict__ lt,
+                const uint32_t* __restrict__ lo, uint32_t* __restrict__ cmeta,
+                uint32_t* __restrict__ meta, long long nch,
+                const uint32_t* __restrict__ cut_bits, bool sort,
+                uint32_t* __restrict__ kth) {
   __shared__ uint32_t s[33];
   __shared__ uint32_t s_digit, s_below;
   const int q = blockIdx.x;
@@ -369,7 +441,8 @@ sel_last_kernel(const uint32_t* __restrict__ chist,
         carry_eq + block_exclusive_scan<kBins3>(n_eq, s, &tot);
     carry_eq += tot;
     const uint32_t quota = keq > eq_before ? keq - eq_before : 0u;
-    const uint32_t n_out = n_lt + min(n_eq, quota);
+    const uint32_t n_out = n_lt + min(n_eq, quota) -
+                           (lo && c < nch ? lo[(long long)q * nch + c] : 0u);
     const uint32_t off =
         carry_out + block_exclusive_scan<kBins3>(n_out, s, &tot);
     carry_out += tot;
@@ -380,23 +453,20 @@ sel_last_kernel(const uint32_t* __restrict__ chist,
     }
   }
   if (threadIdx.x == 0) {
-    const uint32_t t = (m[kPrefix] << 10) | dt;
-    const uint32_t least = ~m[kNotMin];
-    const int bits = least == t ? 0 : 32 - __clz(least ^ t);
-    m[kT] = t;
-    m[kPasses] = (bits + kRadixBits - 1) / kRadixBits;
+    // A range's pairs lie above the cut: its u is their least.
+    const uint32_t least =
+        cut_bits ? max(~m[kNotMin], cut_bits[q] ^ kFlip) : ~m[kNotMin];
+    set_t(m, least, (m[kPrefix] << 10) | dt, sort, kth ? kth + q : nullptr);
   }
 }
 
 // A full sort (k == L): T is the largest u.
-__global__ void sel_all_kernel(uint32_t* __restrict__ meta, int Q) {
+__global__ void sel_all_kernel(uint32_t* __restrict__ meta, int Q, bool sort,
+                               uint32_t* __restrict__ kth) {
   const int q = blockIdx.x * blockDim.x + threadIdx.x;
   if (q >= Q) return;
   uint32_t* m = meta + q * kMeta;
-  const uint32_t least = ~m[kNotMin], t = m[kMax];
-  const int bits = least == t ? 0 : 32 - __clz(least ^ t);
-  m[kT] = t;
-  m[kPasses] = (bits + kRadixBits - 1) / kRadixBits;
+  set_t(m, ~m[kNotMin], m[kMax], sort, kth ? kth + q : nullptr);
 }
 
 // Where the pairs of pass `pass` (0 = the compaction's output) lie: the
@@ -405,24 +475,32 @@ __device__ __forceinline__ bool in_outputs(uint32_t passes, int pass) {
   return ((passes - pass) & 1) == 0;
 }
 
-// The stable compaction (see the top). kAll copies the whole row.
-template <bool kAll>
+// The stable compaction (see the top). kAll copies the whole row. kRange:
+// a pair's column is cols[i] (the list's), pairs at or below the cut are
+// dropped, and the chunk's offset already counts only the pairs kept. The
+// pairs go to rows of `n` (the outputs or the sort's scratch).
+template <bool kAll, bool kRange>
 __global__ void __launch_bounds__(kSelThreads)
-sel_compact_kernel(const uint32_t* __restrict__ lb, long long L, long long k,
+sel_compact_kernel(const uint32_t* __restrict__ lb,
+                   const int32_t* __restrict__ cols, long long L, long long n,
                    long long nch, const uint32_t* __restrict__ meta,
-                   const uint32_t* __restrict__ cmeta, uint32_t* keys,
+                   const uint32_t* __restrict__ cmeta,
+                   const uint32_t* __restrict__ cut_bits,
+                   const int32_t* __restrict__ cut_cols, uint32_t* keys,
                    int32_t* vals, uint32_t* out_bits, int32_t* out_cols) {
-  __shared__ uint32_t s_lt[kSelUnroll * kSelWarps];
-  __shared__ uint32_t s_eq[kSelUnroll * kSelWarps];
-  __shared__ uint32_t s_carry[2];
+  constexpr int kScans = kRange ? 3 : 2;  // below T, ties, dropped
+  constexpr int kSteps = kSelUnroll * kSelWarps;
+  __shared__ uint32_t s_cnt[kScans][kSteps];
+  __shared__ uint32_t s_carry[kScans];
   const int q = blockIdx.y;
   const long long c = blockIdx.x;
   const uint32_t* m = meta + q * kMeta;
   const bool to_out = in_outputs(m[kPasses], 0);
-  uint32_t* dk = (to_out ? out_bits : keys) + (long long)q * k;
-  int32_t* dv = (to_out ? out_cols : vals) + (long long)q * k;
+  uint32_t* dk = (to_out ? out_bits : keys) + (long long)q * n;
+  int32_t* dv = (to_out ? out_cols : vals) + (long long)q * n;
   const uint32_t flip = to_out ? kFlip : 0u;  // outputs hold float bits
   const uint32_t* row = lb + (long long)q * L;
+  const int32_t* crow = kRange ? cols + (long long)q * L : nullptr;
   const long long s = c * kChunk;
   const long long e = min(s + kChunk, L);
   if (kAll) {
@@ -436,30 +514,39 @@ sel_compact_kernel(const uint32_t* __restrict__ lb, long long L, long long k,
   const uint32_t off = cm[0], quota = cm[1];
   if (cm[2] == 0) return;  // nothing of this chunk is selected
   const uint32_t t = m[kT];
+  const Cut cut(kRange ? cut_bits : nullptr, cut_cols, q);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const uint32_t lower = (1u << lane) - 1u;
-  if (threadIdx.x < 2) s_carry[threadIdx.x] = 0;
+  if (threadIdx.x < kScans) s_carry[threadIdx.x] = 0;
   for (long long base = s; base < e; base += kSelTile) {
-    uint32_t v[kSelUnroll], b_lt[kSelUnroll], b_eq[kSelUnroll];
+    uint32_t v[kSelUnroll], b[kScans][kSelUnroll];
+    int32_t col[kSelUnroll];  // kRange: the list's column, where selected
     load_step(row, base, e, v);
 #pragma unroll
     for (int j = 0; j < kSelUnroll; ++j) {
-      const bool ok = base + j * kSelThreads + threadIdx.x < e;
-      b_lt[j] = __ballot_sync(kFull, ok && v[j] < t);
-      b_eq[j] = __ballot_sync(kFull, ok && v[j] == t);
-    }
-    __syncthreads();  // the last step is done with s_lt, s_eq, s_carry
-    if (lane == 0) {
-#pragma unroll
-      for (int j = 0; j < kSelUnroll; ++j) {
-        s_lt[j * kSelWarps + warp] = __popc(b_lt[j]);
-        s_eq[j * kSelWarps + warp] = __popc(b_eq[j]);
+      const long long i = base + j * kSelThreads + threadIdx.x;
+      const bool ok = i < e;
+      b[0][j] = __ballot_sync(kFull, ok && v[j] < t);
+      b[1][j] = __ballot_sync(kFull, ok && v[j] == t);
+      if (kRange) {
+        const bool cut_here = ok && cut.below(v[j], crow + i);
+        b[kScans - 1][j] = __ballot_sync(kFull, cut_here);
+        // loaded here, so that the load's latency hides behind the scan
+        col[j] = ok && v[j] <= t && !cut_here ? __ldg(crow + i) : 0;
       }
     }
+    __syncthreads();  // the last step is done with s_cnt, s_carry
+    if (lane == 0) {
+#pragma unroll
+      for (int a = 0; a < kScans; ++a)
+#pragma unroll
+        for (int j = 0; j < kSelUnroll; ++j)
+          s_cnt[a][j * kSelWarps + warp] = __popc(b[a][j]);
+    }
     __syncthreads();
-    if (warp < 2) {  // warp 0 scans the counts below T, warp 1 the ties
-      constexpr int kPerLane = kSelUnroll * kSelWarps / 32;
-      uint32_t* a = warp == 0 ? s_lt : s_eq;
+    if (warp < kScans) {  // warp a scans counts a over the block's steps
+      constexpr int kPerLane = kSteps / 32;
+      uint32_t* a = s_cnt[warp];
       uint32_t x[kPerLane];
       uint32_t sum = 0;
 #pragma unroll
@@ -486,16 +573,23 @@ sel_compact_kernel(const uint32_t* __restrict__ lb, long long L, long long k,
     __syncthreads();
 #pragma unroll
     for (int j = 0; j < kSelUnroll; ++j) {
-      const uint32_t n_lt = s_lt[j * kSelWarps + warp] +
-                            __popc(b_lt[j] & lower);
-      const uint32_t n_eq = s_eq[j * kSelWarps + warp] +
-                            __popc(b_eq[j] & lower);
-      const bool is_lt = (b_lt[j] >> lane) & 1u;
-      const bool is_eq = ((b_eq[j] >> lane) & 1u) && n_eq < quota;
-      if (is_lt || is_eq) {
-        const uint32_t pos = off + n_lt + min(n_eq, quota);
-        dk[pos] = v[j] ^ flip;
-        dv[pos] = (int32_t)(base + j * kSelThreads + threadIdx.x);
+      const int st = j * kSelWarps + warp;
+      const uint32_t n_lt = s_cnt[0][st] + __popc(b[0][j] & lower);
+      const uint32_t n_eq = s_cnt[1][st] + __popc(b[1][j] & lower);
+      const bool is_lt = (b[0][j] >> lane) & 1u;
+      const bool is_eq = ((b[1][j] >> lane) & 1u) && n_eq < quota;
+      // the pairs dropped before this one, all of them selected too
+      const uint32_t n_cut =
+          kRange ? s_cnt[kScans - 1][st] + __popc(b[kScans - 1][j] & lower)
+                 : 0u;
+      const bool cut_here = kRange && ((b[kScans - 1][j] >> lane) & 1u);
+      if ((is_lt || is_eq) && !cut_here) {
+        const uint32_t pos = off + n_lt + min(n_eq, quota) - n_cut;
+        const long long i = base + j * kSelThreads + threadIdx.x;
+        if (pos < n) {  // holds unless the cut is not the rank lo - 1 pair
+          dk[pos] = v[j] ^ flip;
+          dv[pos] = kRange ? col[j] : (int32_t)i;
+        }
       }
     }
   }
@@ -659,6 +753,101 @@ sort_scatter_kernel(uint32_t* keys, int32_t* vals, uint32_t* out_bits,
   }
 }
 
+// What one C entry asks of the shared kernels.
+struct Call {
+  const uint32_t* in;      // (Q, L) bounds as float bits
+  const int32_t* cols;     // (Q, L) columns of a range's list; else null
+  const uint32_t* cut_bits;  // (Q,) the rank lo - 1 pair, or null
+  const int32_t* cut_cols;
+  uint32_t* out_bits;      // (Q, n)
+  int32_t* out_cols;
+  uint32_t* kth;           // (Q,) T as float bits, or null
+  int Q;
+  long long L, k, n;       // k: ranks selected; n: pairs written a row
+  bool sort;
+};
+
+int queue(const Call& c, uint32_t* w, const Layout& a, cudaStream_t st) {
+  uint32_t* meta = w + a.meta;
+  uint32_t* keys = w + a.keys;
+  int32_t* vals = (int32_t*)(w + a.vals);
+  cudaError_t err = cudaMemsetAsync(w, 0, a.zeroed * 4, st);
+  if (err != cudaSuccess) return (int)err;
+#define PARIS_CHECK_LAUNCH()                       \
+  do {                                             \
+    const cudaError_t e = cudaGetLastError();      \
+    if (e != cudaSuccess) return (int)e;           \
+  } while (0)
+  const dim3 rows_grid((unsigned)a.nch, (unsigned)c.Q);
+  if (c.k == c.L && !c.cols) {
+    sel_top_kernel<false><<<rows_grid, kSelThreads, 0, st>>>(c.in, c.L, meta,
+                                                              w + a.hist1);
+    PARIS_CHECK_LAUNCH();
+    sel_all_kernel<<<(c.Q + 255) / 256, 256, 0, st>>>(meta, c.Q, c.sort,
+                                                       c.kth);
+    PARIS_CHECK_LAUNCH();
+    sel_compact_kernel<true, false><<<rows_grid, kSelThreads, 0, st>>>(
+        c.in, nullptr, c.L, c.n, a.nch, meta, w + a.cmeta, nullptr, nullptr,
+        keys, vals, c.out_bits, c.out_cols);
+    PARIS_CHECK_LAUNCH();
+  } else {
+    sel_top_kernel<true><<<rows_grid, kSelThreads, 0, st>>>(c.in, c.L, meta,
+                                                             w + a.hist1);
+    PARIS_CHECK_LAUNCH();
+    sel_find_kernel<true><<<c.Q, kFindThreads, 0, st>>>(w + a.hist1, meta,
+                                                        (uint32_t)c.k);
+    PARIS_CHECK_LAUNCH();
+    sel_mid_kernel<<<rows_grid, kSelThreads, 0, st>>>(c.in, c.L, meta,
+                                                      w + a.hist2);
+    PARIS_CHECK_LAUNCH();
+    sel_find_kernel<false><<<c.Q, kFindThreads, 0, st>>>(w + a.hist2, meta,
+                                                         (uint32_t)c.k);
+    PARIS_CHECK_LAUNCH();
+    if (c.cols)
+      sel_low_kernel<true><<<rows_grid, kSelThreads, 0, st>>>(
+          c.in, c.cols, c.L, a.nch, meta, c.cut_bits, c.cut_cols,
+          w + a.chist, w + a.lt, w + a.lo);
+    else
+      sel_low_kernel<false><<<rows_grid, kSelThreads, 0, st>>>(
+          c.in, nullptr, c.L, a.nch, meta, nullptr, nullptr, w + a.chist,
+          w + a.lt, nullptr);
+    PARIS_CHECK_LAUNCH();
+    sel_last_kernel<<<c.Q, kBins3, 0, st>>>(
+        w + a.chist, w + a.lt, c.cut_bits ? w + a.lo : nullptr, w + a.cmeta,
+        meta, a.nch, c.cut_bits, c.sort, c.kth);
+    PARIS_CHECK_LAUNCH();
+    if (c.cols)
+      sel_compact_kernel<false, true><<<rows_grid, kSelThreads, 0, st>>>(
+          c.in, c.cols, c.L, c.n, a.nch, meta, w + a.cmeta, c.cut_bits,
+          c.cut_cols, keys, vals, c.out_bits, c.out_cols);
+    else
+      sel_compact_kernel<false, false><<<rows_grid, kSelThreads, 0, st>>>(
+          c.in, nullptr, c.L, c.n, a.nch, meta, w + a.cmeta, nullptr,
+          nullptr, keys, vals, c.out_bits, c.out_cols);
+    PARIS_CHECK_LAUNCH();
+  }
+  if (!c.sort) return (int)cudaSuccess;
+  const dim3 tiles_grid((unsigned)a.tiles, (unsigned)c.Q);
+  for (int pass = 0; pass < kMaxPasses; ++pass) {
+    sort_count_kernel<<<tiles_grid, kCountThreads, 0, st>>>(
+        keys, c.out_bits, c.n, a.tiles, meta, w + a.counts, pass);
+    PARIS_CHECK_LAUNCH();
+    sort_scan_kernel<<<c.Q, kScanThreads, 0, st>>>(w + a.counts, a.tiles,
+                                                   meta, pass);
+    PARIS_CHECK_LAUNCH();
+    sort_scatter_kernel<<<tiles_grid, kSortThreads, 0, st>>>(
+        keys, vals, c.out_bits, c.out_cols, c.n, a.tiles, meta,
+        w + a.counts, pass);
+    PARIS_CHECK_LAUNCH();
+  }
+#undef PARIS_CHECK_LAUNCH
+  return (int)cudaSuccess;
+}
+
+bool bad_shape(int Q, long long L, long long k) {
+  return Q <= 0 || L <= 0 || k <= 0 || k > L || Q > 65535;
+}
+
 }  // namespace
 
 // Words of int32 scratch that smallest_launch needs for (Q, L) bounds and k.
@@ -672,71 +861,59 @@ extern "C" long long smallest_scratch_words(int Q, long long L, long long k) {
 extern "C" int smallest_launch(const void* lb, void* cols, void* bounds,
                                void* scratch, long long words, int Q,
                                long long L, long long k, void* stream) {
-  if (Q <= 0 || L <= 0 || k <= 0 || k > L || Q > 65535)
-    return (int)cudaErrorInvalidValue;
+  if (bad_shape(Q, L, k)) return (int)cudaErrorInvalidValue;
   const Layout a = layout(Q, L, k);
   if (words < a.total) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const uint32_t* in = (const uint32_t*)lb;
-  uint32_t* w = (uint32_t*)scratch;
-  uint32_t* meta = w + a.meta;
-  uint32_t* keys = w + a.keys;
-  int32_t* vals = (int32_t*)(w + a.vals);
-  uint32_t* out_bits = (uint32_t*)bounds;
-  int32_t* out_cols = (int32_t*)cols;
-  cudaError_t err = cudaMemsetAsync(w, 0, a.zeroed * 4, st);
-  if (err != cudaSuccess) return (int)err;
-#define PARIS_CHECK_LAUNCH()                       \
-  do {                                             \
-    const cudaError_t e = cudaGetLastError();      \
-    if (e != cudaSuccess) return (int)e;           \
-  } while (0)
-  const dim3 rows_grid((unsigned)a.nch, (unsigned)Q);
-  if (k == L) {
-    sel_top_kernel<false><<<rows_grid, kSelThreads, 0, st>>>(in, L, meta,
-                                                              w + a.hist1);
-    PARIS_CHECK_LAUNCH();
-    sel_all_kernel<<<(Q + 255) / 256, 256, 0, st>>>(meta, Q);
-    PARIS_CHECK_LAUNCH();
-    sel_compact_kernel<true><<<rows_grid, kSelThreads, 0, st>>>(
-        in, L, k, a.nch, meta, w + a.cmeta, keys, vals, out_bits, out_cols);
-    PARIS_CHECK_LAUNCH();
-  } else {
-    sel_top_kernel<true><<<rows_grid, kSelThreads, 0, st>>>(in, L, meta,
-                                                             w + a.hist1);
-    PARIS_CHECK_LAUNCH();
-    sel_find_kernel<true><<<Q, kFindThreads, 0, st>>>(w + a.hist1, meta,
-                                                      (uint32_t)k);
-    PARIS_CHECK_LAUNCH();
-    sel_mid_kernel<<<rows_grid, kSelThreads, 0, st>>>(in, L, meta,
-                                                      w + a.hist2);
-    PARIS_CHECK_LAUNCH();
-    sel_find_kernel<false><<<Q, kFindThreads, 0, st>>>(w + a.hist2, meta,
-                                                       (uint32_t)k);
-    PARIS_CHECK_LAUNCH();
-    sel_low_kernel<<<rows_grid, kSelThreads, 0, st>>>(
-        in, L, a.nch, meta, w + a.chist, w + a.lt);
-    PARIS_CHECK_LAUNCH();
-    sel_last_kernel<<<Q, kBins3, 0, st>>>(w + a.chist, w + a.lt, w + a.cmeta,
-                                          meta, a.nch);
-    PARIS_CHECK_LAUNCH();
-    sel_compact_kernel<false><<<rows_grid, kSelThreads, 0, st>>>(
-        in, L, k, a.nch, meta, w + a.cmeta, keys, vals, out_bits, out_cols);
-    PARIS_CHECK_LAUNCH();
-  }
-  const dim3 tiles_grid((unsigned)a.tiles, (unsigned)Q);
-  for (int pass = 0; pass < kMaxPasses; ++pass) {
-    sort_count_kernel<<<tiles_grid, kCountThreads, 0, st>>>(
-        keys, out_bits, k, a.tiles, meta, w + a.counts, pass);
-    PARIS_CHECK_LAUNCH();
-    sort_scan_kernel<<<Q, kScanThreads, 0, st>>>(w + a.counts, a.tiles, meta,
-                                                 pass);
-    PARIS_CHECK_LAUNCH();
-    sort_scatter_kernel<<<tiles_grid, kSortThreads, 0, st>>>(
-        keys, vals, out_bits, out_cols, k, a.tiles, meta, w + a.counts,
-        pass);
-    PARIS_CHECK_LAUNCH();
-  }
-#undef PARIS_CHECK_LAUNCH
-  return (int)cudaSuccess;
+  const Call c{(const uint32_t*)lb, nullptr, nullptr, nullptr,
+               (uint32_t*)bounds, (int32_t*)cols, nullptr, Q, L, k, k, true};
+  return queue(c, (uint32_t*)scratch, a, (cudaStream_t)stream);
+}
+
+// Words of int32 scratch that select_launch needs for (Q, L) bounds.
+extern "C" long long select_scratch_words(int Q, long long L) {
+  return layout(Q, L, 0).total;
+}
+
+// smallest_launch's pairs in column order, unsorted, and kth: (Q,) f32,
+// each row's k-th smallest bound.
+extern "C" int select_launch(const void* lb, void* cols, void* bounds,
+                             void* kth, void* scratch, long long words, int Q,
+                             long long L, long long k, void* stream) {
+  if (bad_shape(Q, L, k)) return (int)cudaErrorInvalidValue;
+  const Layout a = layout(Q, L, 0);
+  if (words < a.total) return (int)cudaErrorInvalidValue;
+  const Call c{(const uint32_t*)lb, nullptr, nullptr, nullptr,
+               (uint32_t*)bounds, (int32_t*)cols, (uint32_t*)kth, Q, L, k, k,
+               false};
+  return queue(c, (uint32_t*)scratch, a, (cudaStream_t)stream);
+}
+
+// Words of int32 scratch that order_range_launch needs for a (Q, L) list
+// and n = hi - lo pairs a row.
+extern "C" long long order_range_scratch_words(int Q, long long L,
+                                               long long n) {
+  return layout(Q, L, n).total;
+}
+
+// list_bounds, list_cols: (Q, L) a list in column order (select_launch's);
+// cut_bounds, cut_cols: (Q,) its rank lo - 1 pairs, or null for lo == 0;
+// out_cols, out_bounds: (Q, n) ranks [hi - n, hi) in (bound bits, column)
+// order.
+extern "C" int order_range_launch(const void* list_bounds,
+                                  const void* list_cols,
+                                  const void* cut_bounds,
+                                  const void* cut_cols, void* out_cols,
+                                  void* out_bounds, void* scratch,
+                                  long long words, int Q, long long L,
+                                  long long hi, long long n, void* stream) {
+  if (bad_shape(Q, L, hi) || n <= 0 || n > hi ||
+      (cut_bounds == nullptr) != (n == hi) || (cut_bounds && !cut_cols))
+    return (int)cudaErrorInvalidValue;
+  const Layout a = layout(Q, L, n);
+  if (words < a.total) return (int)cudaErrorInvalidValue;
+  const Call c{(const uint32_t*)list_bounds, (const int32_t*)list_cols,
+               (const uint32_t*)cut_bounds, (const int32_t*)cut_cols,
+               (uint32_t*)out_bounds, (int32_t*)out_cols, nullptr, Q, L, hi,
+               n, true};
+  return queue(c, (uint32_t*)scratch, a, (cudaStream_t)stream);
 }

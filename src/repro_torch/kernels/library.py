@@ -1,4 +1,4 @@
-"""The seven kernel entries as PyTorch operators: ``torch.ops.repro_torch.*``.
+"""The nine kernel entries as PyTorch operators: ``torch.ops.repro_torch.*``.
 
 A ``*_cuda`` wrapper hands raw pointers to ``ctypes``, so it cannot run on
 a fake tensor, and a tracer cannot see through it. Each entry is therefore
@@ -64,6 +64,14 @@ SCHEMAS = {
     "smallest": (
         "smallest(Tensor lb, int k) -> (Tensor, Tensor)",
         _select.smallest_cuda),
+    "select": (
+        "select(Tensor lb, int k) -> (Tensor, Tensor, Tensor)",
+        _select.select_cuda),
+    "order_range": (
+        "order_range(Tensor bounds, Tensor cols, int lo, int hi, "
+        "Tensor? prev_bounds=None, Tensor? prev_cols=None) "
+        "-> (Tensor, Tensor)",
+        _select.order_range_cuda),
 }
 
 _lib = torch.library.Library(NAMESPACE, "DEF")
@@ -117,6 +125,19 @@ def _euclid_min_fake(query, data):
 def _smallest_fake(lb, k):
     return (_empty(lb, lb.shape[0], k, dtype=torch.int32),
             _empty(lb, lb.shape[0], k))
+
+
+@torch.library.register_fake(f"{NAMESPACE}::select")
+def _select_fake(lb, k):
+    return (_empty(lb, lb.shape[0], k, dtype=torch.int32),
+            _empty(lb, lb.shape[0], k), _empty(lb, lb.shape[0]))
+
+
+@torch.library.register_fake(f"{NAMESPACE}::order_range")
+def _order_range_fake(bounds, cols, lo, hi, prev_bounds=None,
+                      prev_cols=None):
+    return (_empty(bounds, bounds.shape[0], hi - lo, dtype=torch.int32),
+            _empty(bounds, bounds.shape[0], hi - lo))
 
 
 def _flops(op: str):

@@ -45,6 +45,8 @@ KERNELS = {
     "euclid_sq": (_euclid, "launches"),
     "euclid_min": (_euclid, "min_launches"),
     "smallest": (_select, "launches"),
+    "select": (_select, "select_launches"),
+    "order_range": (_select, "range_launches"),
 }
 
 
@@ -245,3 +247,37 @@ def smallest(lb: torch.Tensor, k: int, *, impl: str = "auto") -> tuple:
     if not _use_kernel(lb, impl):
         return _ref.smallest(lb, k)
     return _OPS.smallest(lb.contiguous(), k)
+
+
+def select(lb: torch.Tensor, k: int, *, impl: str = "auto") -> tuple:
+    """(Q, L) bounds -> :func:`smallest`'s k entries of each row in column
+    order, unsorted, and each row's k-th smallest bound: ((Q, k) int32
+    columns, (Q, k) float32 bounds, (Q,) float32).
+
+    The engine's first selection phase; :func:`order_range` orders what
+    the round loop reaches of it.
+    """
+    if not _use_kernel(lb, impl):
+        return _ref.select(lb, k)
+    return _OPS.select(lb.contiguous(), k)
+
+
+def order_range(bounds: torch.Tensor, cols: torch.Tensor, lo: int, hi: int,
+                prev_bounds=None, prev_cols=None, *,
+                impl: str = "auto") -> tuple:
+    """Ranks [lo, hi) of each row of a (Q, L) column-order list
+    (:func:`select`'s) in (bound bits, column) order: ((Q, hi - lo) int32
+    columns, (Q, hi - lo) float32 bounds), bit for bit ``smallest``'s
+    entries lo..hi-1 of the bounds the list came from.
+
+    ``prev_bounds``/``prev_cols`` ((Q,)) are each row's rank lo - 1 entry,
+    given exactly when lo > 0: the kernels find the range from them. The
+    plain version finds it by rank and does not read them.
+    """
+    if not _use_kernel(bounds, impl):
+        return _ref.order_range(bounds, cols, lo, hi)
+    if lo:
+        prev_bounds = prev_bounds.contiguous()
+        prev_cols = prev_cols.contiguous()
+    return _OPS.order_range(bounds.contiguous(), cols.contiguous(), lo, hi,
+                            prev_bounds, prev_cols)

@@ -10,7 +10,9 @@ and the three lower bounds). Every sum over the last axis uses
 match the JAX package's plain versions bit for bit; the ``euclid_sq``
 and ``euclid_min`` kernels sum in another order and are held to them with
 a tolerance. :func:`smallest` is the selection kernel's plain version, the
-engine's ``torch.topk`` over int64 keys.
+engine's ``torch.topk`` over int64 keys; :func:`select` and
+:func:`order_range`, the engine's two phases of it, are built on the same
+keys.
 """
 
 from __future__ import annotations
@@ -171,6 +173,15 @@ def euclid_min(query: torch.Tensor, data: torch.Tensor) -> tuple:
     return d[i], i.to(torch.int32)
 
 
+def _keys(bounds: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """int64 keys ``(bits << 32) | column``: unique per row, ordered as
+    (bound, column) for non-negative bounds."""
+    key = bounds.contiguous().view(torch.int32).to(torch.int64)
+    key <<= 32
+    key |= cols.to(torch.int64)
+    return key
+
+
 def smallest(lb: torch.Tensor, k: int) -> tuple:
     """The k smallest bounds per row, ascending, ties toward the lower column.
 
@@ -180,11 +191,30 @@ def smallest(lb: torch.Tensor, k: int) -> tuple:
     unique per row and orders exactly as (bound, column). Returns
     ((Q, k) int32 columns, (Q, k) float32 bounds).
     """
-    key = lb.contiguous().view(torch.int32).to(torch.int64)
-    key <<= 32
-    key |= torch.arange(lb.shape[1], dtype=torch.int64, device=lb.device)
+    key = _keys(lb, torch.arange(lb.shape[1], device=lb.device))
     vals = torch.topk(key, k, dim=1, largest=False, sorted=True).values
     del key
     cols = (vals & 0xFFFFFFFF).to(torch.int32)
     bounds = (vals >> 32).to(torch.int32).view(torch.float32)
     return cols, bounds
+
+
+def select(lb: torch.Tensor, k: int) -> tuple:
+    """:func:`smallest`'s k entries of each row in column order, and each
+    row's k-th smallest bound: ((Q, k) int32 columns, (Q, k) float32
+    bounds, (Q,) float32)."""
+    cols, bounds = smallest(lb, k)
+    kth = bounds[:, -1].clone()
+    cols = torch.sort(cols, dim=1).values
+    return cols, lb.gather(1, cols.to(torch.int64)), kth
+
+
+def order_range(bounds: torch.Tensor, cols: torch.Tensor, lo: int,
+                hi: int) -> tuple:
+    """Ranks [lo, hi) of each row of a (Q, L) list of (bound, column)
+    entries in (bound bits, column) order: ((Q, hi - lo) int32 columns,
+    (Q, hi - lo) float32 bounds). The columns of a row are distinct."""
+    vals = torch.topk(_keys(bounds, cols), hi, dim=1, largest=False,
+                      sorted=True).values[:, lo:]
+    return ((vals & 0xFFFFFFFF).to(torch.int32),
+            (vals >> 32).to(torch.int32).view(torch.float32))

@@ -60,7 +60,7 @@ DTYPE_OPS_PER_S = {"bf16": BF16_OPS_PER_S, "fp32": FP32_OPS_PER_S}
 
 
 # ---------------------------------------------------------------------------
-# The seven kernels' bytes and operations
+# The kernels' bytes and operations
 # ---------------------------------------------------------------------------
 
 def kernel_cost(name: str, **shape) -> dict:
@@ -88,7 +88,11 @@ def kernel_cost(name: str, **shape) -> dict:
         8-byte key; 3 operations a value;
       * ``smallest`` (``q`` rows of ``n`` bounds, ``k`` kept a row): the
         bounds read once and the (Q, k) int32 columns and f32 bounds
-        written once; no fp32 arithmetic.
+        written once; no fp32 arithmetic;
+      * ``select`` (the same): as ``smallest``, and the (Q,) k-th bounds;
+      * ``order_range`` (``q`` rows of a list of ``n`` entries, ``m`` =
+        hi - lo ordered a row): the list's bounds read once, the ``m``
+        columns of the range read, and the (Q, m) pairs written.
     """
     s = dict(shape)
     if name == "paa_isax":
@@ -122,6 +126,12 @@ def kernel_cost(name: str, **shape) -> dict:
     if name == "smallest":
         q, n, k = s["q"], s["n"], s["k"]
         return dict(bytes=q * n * 4 + q * k * 8, ops=0)
+    if name == "select":
+        q, n, k = s["q"], s["n"], s["k"]
+        return dict(bytes=q * n * 4 + q * k * 8 + q * 4, ops=0)
+    if name == "order_range":
+        q, n, m = s["q"], s["n"], s["m"]
+        return dict(bytes=q * n * 4 + q * m * 12, ops=0)
     raise KeyError(f"unknown kernel {name!r}")
 
 
@@ -564,6 +574,13 @@ def kernel_cost_of_call(op: str, args, kwargs) -> dict:
     if op == "smallest":
         lb, k = args[0], args[1]
         return kernel_cost("smallest", q=lb.shape[0], n=lb.shape[1], k=k)
+    if op == "select":
+        lb, k = args[0], args[1]
+        return kernel_cost("select", q=lb.shape[0], n=lb.shape[1], k=k)
+    if op == "order_range":
+        bounds, lo, hi = args[0], args[2], args[3]
+        return kernel_cost("order_range", q=bounds.shape[0],
+                           n=bounds.shape[1], m=hi - lo)
     raise KeyError(f"unknown kernel op {op!r}")
 
 

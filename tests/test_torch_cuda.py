@@ -1089,6 +1089,8 @@ def test_cuda_smallest_on_random_walk_bounds(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_one_smallest_launch_set_per_batch_call(cuda_device):
+    """The engine selects once a call (``select``), orders its first prefix
+    and each extension (``order_range``), and never runs the whole sort."""
     from repro_torch.core import build_index
     from repro_torch.core.search import exact_knn_batch
 
@@ -1099,7 +1101,73 @@ def test_cuda_one_smallest_launch_set_per_batch_call(cuda_device):
         for _ in range(calls):
             exact_knn_batch(index, queries, k=4, round_size=64)
         torch.cuda.synchronize()
-        assert tops.launch_counts()["smallest"] == calls
+        counts = tops.launch_counts()
+        assert counts["select"] == calls and counts["smallest"] == 0
+        assert counts["order_range"] >= calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(_selection_cases()))
+def test_cuda_select_and_order_range_bitwise(cuda_device, name):
+    """Both phases of the engine's selection against their plain versions:
+    ``select`` whole, and ``order_range`` over three pieces of its list,
+    each after the first given the piece before's last entry."""
+    lb, k = _selection_cases()[name]
+    lb = torch.from_numpy(lb).to(cuda_device)
+    tops.reset_launch_counts()
+    got = tops.select(lb, k)
+    torch.cuda.synchronize()
+    assert tops.launch_counts()["select"] == 1
+    want = tops.select(lb, k, impl="ref")
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    cols, bounds, _ = want
+    cuts = sorted({0, k // 3, (2 * k) // 3, k})
+    prev = ()
+    for lo, hi in zip(cuts, cuts[1:]):
+        part = tops.order_range(bounds, cols, lo, hi, *prev)
+        plain = tops.order_range(bounds, cols, lo, hi, impl="ref")
+        torch.cuda.synchronize()
+        assert torch.equal(part[0], plain[0])
+        assert torch.equal(part[1].view(torch.int32),
+                           plain[1].view(torch.int32))
+        prev = (part[1][:, -1], part[0][:, -1])
+    assert tops.launch_counts()["order_range"] == len(cuts) - 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["levels", "exponential"])
+def test_cuda_candidate_list_at_the_main_path_shape(cuda_device, kind):
+    """The engine's candidate list at (64, 2^24) bounds, 2^20 selected,
+    rounds of 4096: round by round it reads ``ops.smallest``'s list bit for
+    bit, over its first prefix (2^15 entries, a 32nd of the list) and its
+    first two extensions (to 2^17 and 2^19 entries). ``levels``: 4096
+    values, so every cut falls among ties."""
+    from repro_torch.core.search import CandidateList
+
+    gen = torch.Generator(device=cuda_device).manual_seed(29)
+    shape = (64, 1 << 24)
+    if kind == "levels":
+        lb = torch.randint(0, 4096, shape, generator=gen, device=cuda_device,
+                           dtype=torch.int32).float().mul_(0.125)
+    else:
+        lb = torch.empty(shape, device=cuda_device).exponential_(
+            generator=gen)
+    sel, rs = 1 << 20, 4096
+    want_cols, want_bounds = tops.smallest(lb, sel)
+    cands = CandidateList(lb, sel, rs, "auto")
+    del lb
+    assert torch.equal(cands.last, want_bounds[:, -1])
+    seen = [cands.ordered]
+    for r in range(33):
+        head = cands.head(r)
+        cols, bounds = cands.round(r)
+        assert torch.equal(head, want_bounds[:, r * rs])
+        assert torch.equal(cols, want_cols[:, r * rs:(r + 1) * rs])
+        assert torch.equal(bounds, want_bounds[:, r * rs:(r + 1) * rs])
+        if cands.ordered != seen[-1]:
+            seen.append(cands.ordered)
+    assert seen == [1 << 15, 1 << 17, 1 << 19]
 
 
 # --- The kernel operators (torch.ops.repro_torch) and the dry-run ---------
@@ -1142,6 +1210,13 @@ def _op_cases(dev):
                        keu.min_launches),
         "smallest": ((z[:9].contiguous(), 100), ksel.smallest_cuda,
                      ksel.launches),
+        "select": ((z[:9].contiguous(), 100), ksel.select_cuda,
+                   ksel.select_launches),
+        "order_range": ((z[:9, :200].abs().contiguous(),
+                         torch.arange(200, dtype=torch.int32,
+                                      device=dev).expand(9, -1).contiguous(),
+                         0, 50), ksel.order_range_cuda,
+                        ksel.range_launches),
     }
 
 
@@ -1149,7 +1224,7 @@ def _op_cases(dev):
 @pytest.mark.parametrize("name", ["paa_isax", "lower_bound_sq_batch",
                                   "lower_bound_sq", "lower_bound_sq_multi",
                                   "euclid_sq_gather", "euclid_min",
-                                  "smallest"])
+                                  "smallest", "select", "order_range"])
 def test_cuda_operator_equals_wrapper_and_counts_once(cuda_device, name):
     args, wrapper, counter = _op_cases(cuda_device)[name]
     want = wrapper(*args)

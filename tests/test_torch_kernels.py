@@ -322,10 +322,12 @@ def test_dispatch_rules():
     tops.lower_bound_sq(z[0, :16], torch.zeros((4, 16), dtype=torch.uint8),
                         tx.padded_breakpoints(), 64)
     tops.smallest(z.abs(), 5)
+    cols, bounds, _ = tops.select(z.abs(), 5)
+    tops.order_range(bounds, cols, 0, 3)
     assert tops.launch_counts() == {
         "paa_isax": 0, "lower_bound_sq_batch": 0, "lower_bound_sq": 0,
         "lower_bound_sq_multi": 0, "euclid_sq": 0, "euclid_min": 0,
-        "smallest": 0}
+        "smallest": 0, "select": 0, "order_range": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -352,6 +354,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         euclidean.euclid_min_cuda(z[0].contiguous(), z)
     with pytest.raises(ValueError, match="CUDA"):
         select.smallest_cuda(z, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        select.select_cuda(z, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        select.order_range_cuda(z, z.to(torch.int32), 0, 3)
 
 
 def test_build_sources_exist_and_name_their_entries():

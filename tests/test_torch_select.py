@@ -7,12 +7,19 @@ row. The cases cover ties that straddle the k-th place, an all-equal row,
 longer than one chunk of the card's kernels (65536 bounds), and Q in
 {1, 3, 64}. ``tests/test_torch_cuda.py`` holds the kernel to the plain
 version on the same cases. This file imports no JAX.
+
+The engine's lazy candidate list (``search.CandidateList``: ``ops.select``
+then ``ops.order_range`` one prefix at a time) must read, round by round,
+exactly what ``ops.smallest``'s sorted list holds: every extent its
+schedule produces, ties broken by column, a list length that is not a
+multiple of the round size, and the full sort (``sel_len == L``).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import search
 from repro_torch.kernels import ops
 
 INF = np.float32(np.inf)
@@ -79,3 +86,107 @@ def test_smallest_tie_rule_gives_the_fallback_its_bound():
     _, bounds = ops.smallest(torch.from_numpy(lb), k)
     np.testing.assert_array_equal(bounds[:, -1].numpy(),
                                   np.sort(lb, axis=1)[:, k - 1])
+
+
+def list_cases() -> dict:
+    """name -> ((Q, L) float32 bounds, sel_len, round size)."""
+    rng = np.random.RandomState(29)
+    ties = (rng.randint(0, 40, size=(3, 5003)) * 0.5).astype(np.float32)
+    pads = rng.exponential(3.0, size=(2, 4000)).astype(np.float32)
+    pads[:, 3000:] = INF
+    return {
+        # 312 entries, rounds of 7: extents 14, 56, 224, 312 (the end)
+        "ties_ragged_end": (ties, search.select_len(5003, 7), 7),
+        # 4000 entries: the first prefix is a 32nd of them (125 -> 126)
+        "share_of_the_list": (ties[:2].repeat(3, axis=1), 4000, 7),
+        "full_sort": (rng.exponential(2.0, size=(2, 999)).astype(np.float32),
+                      999, 10),
+        "inf_padding": (pads, 3500, 16),
+        "q1_one_prefix": (rng.exponential(1.0, size=(1, 777)).astype(
+            np.float32), 100, 64),
+    }
+
+
+def extents(sel_len: int, rs: int) -> list:
+    """The ordered prefix lengths the list's schedule passes through when
+    the loop runs every round: the first prefix, then four times the
+    prefix, never past the list's end."""
+    out = [search.CandidateList.first_prefix(sel_len, rs)]
+    while out[-1] < sel_len:
+        out.append(min(sel_len, search.PREFIX_GROWTH * out[-1]))
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(list_cases()))
+def test_candidate_list_reads_the_sorted_prefix(name):
+    lb, sel_len, rs = list_cases()[name]
+    lb = torch.from_numpy(lb)
+    want_cols, want_bounds = ops.smallest(lb, sel_len)
+    cands = search.CandidateList(lb, sel_len, rs, "auto")
+    assert torch.equal(cands.last.view(torch.int32),
+                       want_bounds[:, -1].view(torch.int32))
+    seen = [cands.ordered]
+    for r in range(-(-sel_len // rs)):
+        head = cands.head(r)
+        cols, bounds = cands.round(r)
+        assert torch.equal(head.view(torch.int32),
+                           want_bounds[:, r * rs].view(torch.int32))
+        end = min(sel_len, (r + 1) * rs)
+        assert torch.equal(cols[:, :end - r * rs], want_cols[:, r * rs:end])
+        assert torch.equal(bounds[:, :end - r * rs].view(torch.int32),
+                           want_bounds[:, r * rs:end].view(torch.int32))
+        assert (cols[:, end - r * rs:] == 0).all()  # padding past the end
+        assert torch.isinf(bounds[:, end - r * rs:]).all()
+        if cands.ordered != seen[-1]:
+            seen.append(cands.ordered)
+    assert seen == extents(sel_len, rs)
+
+
+def test_candidate_list_orders_only_what_the_loop_reaches():
+    """A loop that stops after round 2's check has ordered two rounds and
+    then one extension (the check reads round 2's head); rounds it never
+    checks are never ordered."""
+    lb, sel_len, rs = list_cases()["ties_ragged_end"]
+    cands = search.CandidateList(torch.from_numpy(lb), sel_len, rs, "auto")
+    assert cands.ordered == 2 * rs
+    cands.round(0)
+    cands.head(1)
+    cands.round(1)
+    assert cands.ordered == 2 * rs
+    cands.head(2)
+    assert cands.ordered == 8 * rs
+
+
+@pytest.mark.parametrize("sel_len,rs,first", [
+    (312, 7, 14),  # two rounds: more than a 32nd of the list
+    (4000, 7, 126),  # a 32nd (125), rounded up to whole rounds
+    (1 << 20, 4096, 1 << 15),  # the batch cells: 8 rounds
+    (1_161_216, 4096, 36864),  # the live cell's N_pad / 16: 9 rounds
+    (20, 16, 20),  # never past the list's end
+])
+def test_first_prefix_is_whole_rounds_and_a_share_of_the_list(sel_len, rs,
+                                                             first):
+    assert search.CandidateList.first_prefix(sel_len, rs) == first
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_select_and_order_range_give_smallest(name):
+    """``ops.select``'s column-order entries and last bound, and
+    ``ops.order_range`` over them in three pieces, rebuild
+    ``ops.smallest`` bit for bit (the plain versions here; the card's
+    kernels in ``test_torch_cuda.py``)."""
+    lb, k = CASES[name]
+    lb = torch.from_numpy(lb)
+    want_cols, want_bounds = ops.smallest(lb, k)
+    cols, bounds, kth = ops.select(lb, k)
+    assert torch.equal(cols, torch.sort(want_cols, dim=1).values)
+    assert torch.equal(bounds.view(torch.int32),
+                       lb.gather(1, cols.long()).view(torch.int32))
+    assert torch.equal(kth.view(torch.int32),
+                       want_bounds[:, -1].view(torch.int32))
+    cuts = sorted({0, k // 3, (2 * k) // 3, k})
+    got = [ops.order_range(bounds, cols, lo, hi) for lo, hi in
+           zip(cuts, cuts[1:])]
+    assert torch.equal(torch.cat([c for c, _ in got], 1), want_cols)
+    assert torch.equal(torch.cat([b for _, b in got], 1).view(torch.int32),
+                       want_bounds.view(torch.int32))

@@ -68,9 +68,14 @@ def test_batch_engine_spans(index, kind):
     main = -(-search.select_len(N, ROUND) // ROUND)
     assert (rounds > main) == (kind == "fallback")
     for name in ("paris.engine", "paris.engine.view", "paris.engine.prep",
-                 "paris.engine.seed", "paris.engine.bounds",
-                 "paris.engine.select"):
+                 "paris.engine.seed", "paris.engine.bounds"):
         assert spans[name] == 1, name
+    # The list's first prefix covers two rounds of its 8; the fallback
+    # batch runs them all, so its list is ordered once more, to the end,
+    # under a second select span.
+    extend = spans["paris.engine.select.extend"]
+    assert extend == (kind == "fallback")
+    assert spans["paris.engine.select"] == 1 + extend
     assert spans["paris.engine.sync"] == (
         spans["paris.engine.round"] + spans["paris.engine.fallback_round"])
     # The fallback runs only after the main list ran out, so the rounds
