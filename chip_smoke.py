@@ -38,10 +38,11 @@ Phases, each of which raises (exit code 1) on a failed check:
                 beside its bound (the larger of bytes over 3.35 TB/s and
                 fp32 operations over 67 TFLOP/s, the H100 SXM peaks; both
                 counts from ``repro_torch.launch.roofline.kernel_cost``),
-                with the launch shape each ran at; ``smallest`` (the
-                engine's candidate selection, top 2^20 of (64, 2^24)) bit
-                for bit, beside the int64-key ``torch.topk`` that is its
-                plain version and its ``library_ms``;
+                with the launch shape each ran at; the engine's candidate
+                selection, top 2^20 of (64, 2^24), in its two phases
+                (``select``, then ``order_range`` over the first prefix
+                and the first extension) bit for bit, also against the
+                int64-key ``torch.topk`` oracle ``ref.smallest``;
   tuning      — the launch-shape table (``repro_torch.core.tuning``): the
                 committed table validates; for each registered kernel at a
                 moderate shape, every admitted lattice point's output equals
@@ -267,13 +268,11 @@ KERNEL_ROWS = {  # name -> (source, TPU kernel it replaces)
                              "src/repro/kernels/lower_bound.py:77"),
     "euclid_min": ("src/repro_torch/kernels/csrc/euclidean.cu",
                    "src/repro/kernels/euclidean.py:54"),
-    "smallest": ("src/repro_torch/kernels/csrc/select.cu",
-                 "none (the reference's jax.lax.top_k, "
-                 "src/repro/core/search.py:592)"),
     "select": ("src/repro_torch/kernels/csrc/select.cu",
-               "none (the engine's phase 1 of smallest)"),
+               "none (phase 1 of the reference's jax.lax.top_k, "
+               "src/repro/core/search.py:592)"),
     "order_range": ("src/repro_torch/kernels/csrc/select.cu",
-                    "none (the engine's phase 2 of smallest)"),
+                    "none (phase 2 of the reference's jax.lax.top_k)"),
 }
 # The kernels each driven path must launch.
 PATH_KERNELS = {
@@ -362,11 +361,10 @@ def launch_shape(name: str, q: int, n: int, dev) -> dict:
     return tuning.resolve_blocks(TUNED_AS[name], q=q, n=n, device=dev)
 
 
-def kernel_row(name, err, ms, plain_ms, cost, shape, library_ms=None) -> dict:
+def kernel_row(name, err, ms, plain_ms, cost, shape) -> dict:
     """One kernel's entry of the JSON line; ``launches`` is filled in later.
     ``cost`` is ``roofline.kernel_cost``'s bytes and operations at the
-    timed call, ``shape`` the launch shape it was timed at, ``library_ms``
-    the time of the one PyTorch call that computes the same, if any."""
+    timed call, ``shape`` the launch shape it was timed at."""
     n_bytes, n_ops = cost["bytes"], cost["ops"]
     b_ms, b_by = bound_ms(n_bytes, n_ops)
     src, replaces = KERNEL_ROWS[name]
@@ -376,8 +374,7 @@ def kernel_row(name, err, ms, plain_ms, cost, shape, library_ms=None) -> dict:
         f"{shape}")
     return dict(name=name, route="cuda", source=src, replaces=replaces,
                 launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
-                shape=shape)
+                bound_ms=b_ms, bound_by=b_by, shape=shape)
 
 
 def path_counts(path: str, counts=None) -> dict:
@@ -845,6 +842,15 @@ def phase_classify(full: dict) -> dict:
     return counts
 
 
+def first_round(lb, num_series: int, rs: int):
+    """Each query's first round of the engine's candidate list over
+    ``lb``: (Q, rs) int64 rows, as ``CandidateList`` gives them."""
+    from repro_torch.core.search import CandidateList, select_len
+
+    cands = CandidateList(lb, select_len(num_series, rs), rs, "auto")
+    return cands.round(0)[0].long()
+
+
 def classify_kernel_checks(index, query, rs: int) -> None:
     """The classify path's kernels against their plain versions at its
     shapes (``exact_knn`` runs the batch engine at Q = 1):
@@ -853,7 +859,7 @@ def classify_kernel_checks(index, query, rs: int) -> None:
     import torch
 
     from repro_torch.core import isax
-    from repro_torch.core.search import _queries, _smallest, select_len
+    from repro_torch.core.search import _queries
     from repro_torch.kernels import ops
 
     n, w = index.series_length, index.segments
@@ -864,10 +870,8 @@ def classify_kernel_checks(index, query, rs: int) -> None:
     expect(torch.equal(lb, ops.lower_bound_sq_batch(
         qps, index.sax, bpp, n, impl="ref")), "classify: lower_bound_sq_batch"
         " at Q=1 not bitwise equal to its plain version")
-    order, _ = _smallest(lb, select_len(index.num_series, rs))
+    pos = index.pos[first_round(lb, index.num_series, rs)].contiguous()
     del lb
-    pos = index.pos[order[:, :rs].long()].contiguous()
-    del order
     got = ops.euclid_sq_gather(qs, index.raw, pos)
     plain = ops.euclid_sq_gather(qs, index.raw, pos, impl="ref")
     expect(torch.allclose(got, plain, rtol=1e-5, atol=1e-5),
@@ -885,7 +889,7 @@ def phase_kernels(full: dict) -> list:
     from repro_torch.core import isax
     from repro_torch.core.search import (PREFIX_GROWTH, CandidateList,
                                          select_len)
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, ref
     from repro_torch.launch.roofline import kernel_cost
 
     index, qz = full["index"], full["qz"]
@@ -929,27 +933,14 @@ def phase_kernels(full: dict) -> list:
                     n_bp=bpp.numel()),
         launch_shape("lower_bound_sq_batch", n_q, n_series, dev))
 
-    # smallest: the engine's candidate selection, (Q, N) -> (Q, select_len).
-    # Its plain version is the int64-key torch.topk that the engine ran
-    # before the kernel, so it is the library yardstick too.
+    # select and order_range: the engine's candidate selection, (Q, N) ->
+    # (Q, select_len), in its two phases. The row of order_range is the
+    # list's first prefix, what a batch that ends in one round orders; its
+    # first extension is logged beside it. Both are held to the whole
+    # sorted list of the oracle, the int64-key torch.topk.
     rs = 4096
     sel = select_len(n_series, rs)
-    order, sel_k = ops.smallest(lb_k, sel)
-    order_p, sel_p = ops.smallest(lb_k, sel, impl="ref")
-    same = torch.equal(order, order_p) and torch.equal(
-        sel_k.view(torch.int32), sel_p.view(torch.int32))
-    log(f"[kernel] smallest: top {sel} of ({n_q}, {n_series}) bitwise "
-        f"equal to its plain version: {same}")
-    expect(same, "smallest not bitwise equal to its plain version")
-    del order_p, sel_p
-    topk_ms = time_ms(lambda: ops.smallest(lb_k, sel, impl="ref"), 3)
-    row("smallest", 0.0, time_ms(lambda: ops.smallest(lb_k, sel), 10),
-        topk_ms, kernel_cost("smallest", q=n_q, n=n_series, k=sel), {},
-        topk_ms)
-
-    # select and order_range: the engine's two phases of the same list. The
-    # row of order_range is the list's first prefix, what a batch that ends
-    # in one round orders; its first extension is logged beside it.
+    order, sel_k = ref.smallest(lb_k, sel)
     got = ops.select(lb_k, sel)
     plain = ops.select(lb_k, sel, impl="ref")
     expect(all(torch.equal(a.view(torch.int32), b.view(torch.int32))
@@ -971,13 +962,14 @@ def phase_kernels(full: dict) -> list:
     same = (torch.equal(part[0], plain[0])
             and torch.equal(part[1].view(torch.int32),
                             plain[1].view(torch.int32))
+            and torch.equal(part[0], order[:, :first])
             and torch.equal(part_x[0], order[:, ext[0]:ext[1]])
             and torch.equal(part_x[1], sel_k[:, ext[0]:ext[1]]))
     ext_ms = time_ms(lambda: ops.order_range(bounds_s, cols_s, *ext, *cut),
                      10)
     log(f"[kernel] order_range: ranks [0, {first}) and [{ext[0]}, {ext[1]})"
         f" of the selected {sel} bitwise equal to their plain version and "
-        f"to smallest: {same}; [{ext[0]}, {ext[1]}) in {ext_ms:.4f} ms")
+        f"to ref.smallest: {same}; [{ext[0]}, {ext[1]}) in {ext_ms:.4f} ms")
     expect(same, "order_range not bitwise equal to its plain version")
     del plain, part, part_x, sel_k
     row("order_range", 0.0,
@@ -1340,8 +1332,7 @@ def serve_kernel_checks(shard, cohort_q, chunk, k: int, rs: int) -> None:
     import torch
 
     from repro_torch.core import isax
-    from repro_torch.core.search import (_queries, _smallest,
-                                         make_batch_engine, select_len)
+    from repro_torch.core.search import _queries, make_batch_engine
     from repro_torch.kernels import ops
 
     n, w, card = shard.series_length, shard.segments, shard.cardinality
@@ -1374,10 +1365,8 @@ def serve_kernel_checks(shard, cohort_q, chunk, k: int, rs: int) -> None:
     # euclid_sq: the shard engine's answers to the cohort, then the first
     # round's candidates, gathered from the shard's rows.
     d_e, p_e = make_batch_engine(shard, k=k, round_size=rs)(cohort_q)
-    order, _ = _smallest(lb, select_len(shard.num_series, rs))
+    cand = shard.pos[first_round(lb, shard.num_series, rs)[:, :rs - k]]
     del lb
-    cand = shard.pos[order[:, :rs - k].long()]
-    del order
     pos = torch.cat([p_e.to(cand.dtype), cand], dim=1).contiguous()
     got = ops.euclid_sq_gather(qs, shard.raw, pos)
     expect(torch.equal(got[:, :k], d_e), "serve: euclid_sq differs from the "
@@ -2670,7 +2659,6 @@ def lm_kernel_checks(vecs, base, kept: dict, k: int, rs: int) -> None:
     import torch
 
     from repro_torch.core import build_sharded_index, isax
-    from repro_torch.core.search import _smallest, select_len
     from repro_torch.kernels import ops
 
     expect("delta" in kept, "lm (e): no delta shard was seen")
@@ -2696,8 +2684,7 @@ def lm_kernel_checks(vecs, base, kept: dict, k: int, rs: int) -> None:
         expect(torch.equal(lb, ops.lower_bound_sq_batch(
             qps, sax, bpp, n, impl="ref")), f"lm (e): lower_bound_sq_batch "
             f"over {what} not bitwise equal to its plain version")
-    order, _ = _smallest(lb, select_len(shard.num_series, rs))
-    pos = shard.pos[order[:, :rs].long()].contiguous()
+    pos = shard.pos[first_round(lb, shard.num_series, rs)].contiguous()
     got = ops.euclid_sq_gather(qs, shard.raw, pos)
     plain = ops.euclid_sq_gather(qs, shard.raw, pos, impl="ref")
     expect(torch.allclose(got, plain, rtol=1e-5, atol=1e-5),

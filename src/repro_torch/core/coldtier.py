@@ -28,7 +28,8 @@ commit, manifest commit, publish, GC) are the reference's.
 
 Search: :class:`ColdShard` plugs into the ONE engine core
 (``core.search._engine_core``) through an :class:`~repro_torch.core.
-search.EngineView`. The reference reads rows through ``jax.pure_callback``
+search.EngineView` and the engine's front door (``_engine_call``), as
+every store does. The reference reads rows through ``jax.pure_callback``
 and distances them with ``euclid_sq``; here the view's ``distances`` hook
 (the port fuses gather and distance) does it in five steps each round:
 the round's positions go to the host, the unique rows are read through the
@@ -61,9 +62,8 @@ from repro_torch.core.durable import (
 )
 from repro_torch.core.index import bucket_offsets_from_keys
 from repro_torch.core.search import (
-    INF, EngineView, SearchConfig, SearchResult, _batch_engine, _engine_core,
-    _pad_missing, _queries, _tier_list, achieved_epsilon,
-    bucket_window_start, tier_arrays,
+    INF, EngineView, SearchConfig, SearchResult, _batch_engine, _engine_call,
+    bucket_window_start,
 )
 from repro_torch.kernels import ops
 
@@ -381,16 +381,6 @@ def _cold_view(shard: ColdShard, *, leaf_cap: int) -> EngineView:
     )
 
 
-def _run_cold(shard: ColdShard, qs: torch.Tensor, *, k: int,
-              round_size: int, leaf_cap: int, sort: bool, select: str,
-              impl: str, eps_factor_sq=None, budget_rounds=None) -> tuple:
-    """The engine core over one cold shard (``search._run_engine``'s twin)."""
-    return _engine_core(
-        _cold_view(shard, leaf_cap=leaf_cap), qs, k=k,
-        round_size=round_size, sort=sort, select=select, impl=impl,
-        eps_factor_sq=eps_factor_sq, budget_rounds=budget_rounds)
-
-
 def cold_exact_knn_batch(
     shard: ColdShard,
     queries,
@@ -407,16 +397,10 @@ def cold_exact_knn_batch(
     Positions are component-local; callers translate by ``shard.base``
     exactly like any other component's answer.
     """
-    if k < 1:
-        raise ValueError(f"k must be >= 1, got {k}")
-    top_d, top_p, reads, updates, rounds = _run_cold(
-        shard, _queries(shard, queries), k=min(k, shard.num_series),
-        round_size=round_size, leaf_cap=leaf_cap, sort=sort, select=select,
-        impl=impl)
-    top_d, top_p = _pad_missing(top_d, top_p, k)
-    if stats:
-        return top_d, top_p, reads, updates, rounds
-    return top_d, top_p
+    out = _engine_call(
+        shard, _cold_view(shard, leaf_cap=leaf_cap), queries, k=k,
+        round_size=round_size, sort=sort, select=select, impl=impl)
+    return out if stats else out[:2]
 
 
 def cold_knn_batch_tiered(
@@ -430,27 +414,21 @@ def cold_knn_batch_tiered(
     leaf_cap: int = 256,
 ) -> tuple:
     """Tiered k-NN over one cold shard (``knn_batch_tiered`` contract)."""
-    if k < 1:
-        raise ValueError(f"k must be >= 1, got {k}")
-    qs = _queries(shard, queries)
-    eps_f, budget = tier_arrays(_tier_list(tier, qs.shape[0]), qs.device)
-    top_d, top_p, _, _, _, ach_sq = _run_cold(
-        shard, qs, k=min(k, shard.num_series), round_size=round_size,
-        leaf_cap=leaf_cap, sort=True, select=select, impl=impl,
-        eps_factor_sq=eps_f, budget_rounds=budget)
-    top_d, top_p = _pad_missing(top_d, top_p, k)
-    return top_d, top_p, achieved_epsilon(ach_sq)
+    top_d, top_p, *_, eps = _engine_call(
+        shard, _cold_view(shard, leaf_cap=leaf_cap), queries, k=k,
+        round_size=round_size, select=select, impl=impl, tier=tier)
+    return top_d, top_p, eps
 
 
 def cold_exact_search_batch(
     shard: ColdShard, queries, cfg: SearchConfig = SearchConfig()
 ) -> SearchResult:
     """Exact 1-NN over one cold shard (``exact_search_batch`` contract)."""
-    top_d, top_p, reads, updates, rounds = _run_cold(
-        shard, _queries(shard, queries), k=1, round_size=cfg.round_size,
-        leaf_cap=cfg.leaf_cap, sort=cfg.sort, select=cfg.select,
+    top_d, top_p, *rest = _engine_call(
+        shard, _cold_view(shard, leaf_cap=cfg.leaf_cap), queries, k=1,
+        round_size=cfg.round_size, sort=cfg.sort, select=cfg.select,
         impl=cfg.impl)
-    return SearchResult(top_d[:, 0], top_p[:, 0], reads, updates, rounds)
+    return SearchResult(top_d[:, 0], top_p[:, 0], *rest)
 
 
 def make_cold_batch_engine(
@@ -468,8 +446,9 @@ def make_cold_batch_engine(
 
     The cold counterpart of :func:`~repro_torch.core.search.
     make_batch_engine` — the same wrapper (pow2 bucket padding, tier
-    plumbing, sentinel protocol) over the cold engine call.
+    plumbing, sentinel protocol) over the cold shard's view.
     """
     return _batch_engine(
-        shard, _run_cold, k=k, round_size=round_size, leaf_cap=leaf_cap,
-        sort=sort, select=select, impl=impl, min_bucket=min_bucket)
+        shard, lambda: _cold_view(shard, leaf_cap=leaf_cap), k=k,
+        round_size=round_size, sort=sort, select=select, impl=impl,
+        min_bucket=min_bucket)

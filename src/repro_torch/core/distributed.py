@@ -35,7 +35,10 @@ The reference gathers every candidate row into round order before its
 loops, only to avoid a gather bug of older JAX inside ``shard_map``; the
 port distances the same rows in place with ``ops.euclid_sq_gather``, with
 per-query ``(Q, R)`` row ids in the main loops and shared ``(R,)`` row ids
-in the file-order fallbacks, so no ``(Q, padded, n)`` copy is made.
+in the file-order fallbacks, so no ``(Q, padded, n)`` copy is made. A
+selected list (``select="topk"`` and the batch bodies) is the single-host
+engine's ``search.CandidateList``, ordered one prefix at a time as the
+round loop reaches it; ``select="sort"`` keeps the full stable argsort.
 """
 
 from __future__ import annotations
@@ -57,7 +60,7 @@ from repro_torch.core import isax
 from repro_torch.core.device import as_f32, resolve_device
 from repro_torch.core.index import ParISIndex
 from repro_torch.core.search import (
-    INF, NO_POS, SearchResult, _round_cols, _smallest, dedup_mask,
+    INF, NO_POS, CandidateList, SearchResult, _round_cols, dedup_mask,
     select_len,
 )
 from repro_torch.kernels import ops
@@ -255,10 +258,10 @@ def _local_exact_search(
     lb = torch.stack([ops.lower_bound_sq(qp, shard.sax, bpp,
                                          shard.series_length, impl=impl)
                       for qp in qps])
+    cands = None
     if shared_bsf and select == "topk":
         sel_len = min(max(n_local // 16, rs), n_local)
-        order, lb_sorted = _smallest(lb, sel_len, impl)
-        order = order.to(torch.int64)
+        cands = CandidateList(lb, sel_len, rs, impl)
     elif shared_bsf:
         sel_len = n_local
         order = torch.argsort(lb, dim=1, stable=True)  # jnp.argsort is stable
@@ -268,6 +271,15 @@ def _local_exact_search(
         order = torch.arange(n_local, device=dev).expand(n_q, -1)
         lb_sorted = lb
     n_rounds = -(-sel_len // rs)
+
+    def head(r):  # (Q,) bound of round r's first entry
+        return cands.head(r) if cands is not None else lb_sorted[:, r * rs]
+
+    def round_of(r):  # round r's ((Q, rs) rows, (Q, rs) bounds)
+        if cands is not None:
+            return cands.round(r)
+        return (_round_cols(order, r, rs, 0),
+                _round_cols(lb_sorted, r, rs, INF))
 
     reads = torch.full((n_q,), cap, dtype=torch.int32, device=dev)
     updates = torch.zeros((n_q,), dtype=torch.int32, device=dev)
@@ -293,21 +305,20 @@ def _local_exact_search(
     for r in range(n_rounds):
         if shared_bsf:
             # Global early stop: gmin(next bound) < bsf is replicated.
-            active = active & (gmin(mesh, lb_sorted[:, r * rs]) < bsf)
+            active = active & (gmin(mesh, head(r)) < bsf)
             if not bool(active.any()):
                 break
-        rows = _round_cols(order, r, rs, 0)
+        rows, lbs = round_of(r)
         bsf, bsfpos, reads, updates = step(
-            active, bsf, bsfpos, reads, updates,
-            _round_cols(lb_sorted, r, rs, INF), rows, pos_l[rows],
-            shared_bsf)
+            active, bsf, bsfpos, reads, updates, lbs, rows,
+            pos_l[rows.long()], shared_bsf)
         rounds += active.to(torch.int32)
 
     if shared_bsf and select == "topk" and sel_len < n_local:
         # Exactness fallback: a query whose last selected bound beats the
         # BSF on some rank scans every shard in SAX order with BSF pruning
         # (re-reading the rows it already had, as the reference counts).
-        kth = lb_sorted[:, sel_len - 1]
+        kth = cands.last
         need = gmin(mesh, torch.where(kth < bsf, 0, 1).to(torch.int32)) < 1
         if bool(need.any()):
             for r2 in range(-(-n_local // rs)):
@@ -324,8 +335,7 @@ def _select(shard: DistIndex, qps: torch.Tensor, round_size: int,
             impl: str) -> tuple:
     """The batch bodies' LBC pass and capped per-query selection.
 
-    Returns ((Q, N_local) bounds, (Q, sel_len) int64 rows, their bounds
-    ascending, sel_len).
+    Returns ((Q, N_local) bounds, their :class:`CandidateList`).
     """
     n_local = shard.num_rows
     n_q = qps.shape[0]
@@ -335,8 +345,7 @@ def _select(shard: DistIndex, qps: torch.Tensor, round_size: int,
     budget_rows = SELECT_BUDGET_VALUES // max(1, n_q * shard.series_length)
     sel_len = min(select_len(n_local, round_size),
                   max(round_size, budget_rows))
-    order, lb_sorted = _smallest(lb, sel_len, impl)
-    return lb, order.to(torch.int64), lb_sorted, sel_len
+    return lb, CandidateList(lb, sel_len, round_size, impl)
 
 
 def _local_batch_search(
@@ -363,9 +372,9 @@ def _local_batch_search(
 
     cap, d0 = _seed(shard, qs, leaf_cap, impl)
     bsf, bsfpos = _agree_1nn(mesh, *_argmin_pick(d0, pos_l[:cap]))
-    lb, order, lb_sorted, sel_len = _select(shard, qps, rs, impl)
-    kth_bound = lb_sorted[:, -1]  # worst selected bound per query
-    n_rounds = -(-sel_len // rs)
+    lb, cands = _select(shard, qps, rs, impl)
+    kth_bound = cands.last  # worst selected bound per query
+    n_rounds = -(-cands.sel_len // rs)
     reads = torch.full((n_q,), cap, dtype=torch.int32, device=dev)
     updates = torch.zeros((n_q,), dtype=torch.int32, device=dev)
 
@@ -382,16 +391,15 @@ def _local_batch_search(
     while r < n_rounds:
         # bsf is agreed every round, so "any query live on any rank" is
         # replicated and every rank leaves at the same round.
-        if not bool((gmin(mesh, lb_sorted[:, r * rs]) < bsf).any()):
+        if not bool((gmin(mesh, cands.head(r)) < bsf).any()):
             break
-        rows = _round_cols(order, r, rs, 0)
+        rows, lbs = cands.round(r)
         bsf, bsfpos, reads, updates = step(
-            bsf, bsfpos, reads, updates,
-            _round_cols(lb_sorted, r, rs, INF) < bsf[:, None], rows,
-            pos_l[rows])
+            bsf, bsfpos, reads, updates, lbs < bsf[:, None], rows,
+            pos_l[rows.long()])
         r += 1
 
-    if sel_len < n_local:
+    if cands.sel_len < n_local:
         # Exactness fallback over the whole shard in SAX order. Rows below
         # the K-th bound were selected already and are skipped.
         r2 = 0
@@ -462,9 +470,9 @@ def _local_batch_knn(
     loc_d[:, 0] = seed_d
     loc_p[:, 0] = seed_p.to(torch.int32)
 
-    lb, order, lb_sorted, sel_len = _select(shard, qps, rs, impl)
-    kth_bound = lb_sorted[:, -1]
-    n_rounds = -(-sel_len // rs)
+    lb, cands = _select(shard, qps, rs, impl)
+    kth_bound = cands.last
+    n_rounds = -(-cands.sel_len // rs)
     reads = torch.full((n_q,), cap, dtype=torch.int32, device=dev)
     updates = torch.zeros((n_q,), dtype=torch.int32, device=dev)
 
@@ -480,16 +488,15 @@ def _local_batch_knn(
     kth = gkth(loc_d)
     r = 0
     while r < n_rounds:
-        if not bool((gmin(mesh, lb_sorted[:, r * rs]) < kth).any()):
+        if not bool((gmin(mesh, cands.head(r)) < kth).any()):
             break
-        rows = _round_cols(order, r, rs, 0)
+        rows, lbs = cands.round(r)
         loc_d, loc_p, kth, reads, updates = step(
-            loc_d, loc_p, kth, reads, updates,
-            _round_cols(lb_sorted, r, rs, INF) < kth[:, None], rows,
-            pos_l[rows])
+            loc_d, loc_p, kth, reads, updates, lbs < kth[:, None], rows,
+            pos_l[rows.long()])
         r += 1
 
-    if sel_len < n_local:
+    if cands.sel_len < n_local:
         r2 = 0
         while r2 < -(-n_local // rs):
             if not _any_rank(mesh, (kth_bound < kth).any()):

@@ -30,7 +30,8 @@ live on the store's device (the card unless the caller asks for the CPU).
     other spilled (:meth:`MutableIndex.recover`).
   * fused search — with several live components, one
     ``lower_bound_sq_multi`` sweep over the snapshot's packed view and one
-    RDC loop (:func:`~repro_torch.core.search.packed_engine_args`).
+    RDC loop, through the engine's front door like every other store
+    (``search._engine_call`` over ``search._packed_view``).
   * the cold tier (``core.coldtier``) — :meth:`MutableIndex.demote` sends
     the folded base to disk; its summaries stay on the device.
   * spans — under a profiler each k-NN search (``exact_knn_batch``,
@@ -60,7 +61,7 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import coldtier, durable, isax, trace, tuning
+from repro_torch.core import coldtier, durable, isax, search, trace
 from repro_torch.core.block_cache import BlockCache
 from repro_torch.core.build_pipeline import (
     _stage2, keys_from_u64, keys_to_u64, merge_runs, refine_key,
@@ -68,11 +69,9 @@ from repro_torch.core.build_pipeline import (
 from repro_torch.core.device import as_f32, resolve_device
 from repro_torch.core.index import ParISIndex, assemble_index, empty_index
 from repro_torch.core.search import (
-    INF, NO_POS, PackedComponents, SearchConfig,
-    SearchResult, _pad_missing, _tier_list, achieved_epsilon,
-    exact_knn_batch, exact_search_batch, knn_batch_tiered, merge_top_lists,
-    pack_components, pack_one_component, packed_engine_args, packed_seed,
-    tier_arrays,
+    INF, NO_POS, PackedComponents, SearchConfig, SearchResult, _pack_block,
+    _tier_list, exact_knn_batch, exact_search_batch, knn_batch_tiered,
+    merge_top_lists, pack_components, pack_one_component, packed_seed,
 )
 
 # Rows copied to the device per step when a recovered component's memory-
@@ -442,22 +441,6 @@ class _SpillTicket:
         self.t0 = t0
 
 
-def _resolve_pack_block(pack_block: Optional[int], num_series: int,
-                        device: torch.device) -> int:
-    """The packed view's block_n: the explicit value, else the tuning table.
-
-    A layout decision fixed for the store's lifetime (appends extend the
-    buffer in block units), so it is resolved once, at construction: the
-    ``lb_multi`` entry for Q = ``tuning.PACK_Q`` (its canonical batch) and
-    the starting size on the store's device, or the registry default (128)
-    on a miss, as on the CPU.
-    """
-    if pack_block is not None:
-        return pack_block
-    return tuning.resolve_blocks("lb_multi", q=tuning.PACK_Q, n=max(num_series, 1),
-                                 device=device)["block_n"]
-
-
 def _upload(arr, dtype, device: torch.device) -> torch.Tensor:
     """A host (possibly memory-mapped) array -> a tensor on ``device``.
 
@@ -535,8 +518,8 @@ class MutableIndex:
         self.series_length = base.series_length
         self.refine_bits = refine_bits
         self.impl = impl
-        self.pack_block = _resolve_pack_block(pack_block, base.num_series,
-                                              self.device)
+        self.pack_block = _pack_block(pack_block, base.num_series,
+                                      self.device)
         base_keys = refine_key(base.sax, refine_bits, base.cardinality)
         self._snapshot = Snapshot(base, base_keys)
         self._cold_cache = (cold_cache if cold_cache is not None
@@ -713,7 +696,7 @@ class MutableIndex:
         self.series_length = man.series_length
         self.refine_bits = man.refine_bits
         self.impl = impl
-        self.pack_block = _resolve_pack_block(pack_block, 0, dev)
+        self.pack_block = _pack_block(pack_block, 0, dev)
         self.workdir = workdir
         self._fault = fault
         self._next_epoch = man.next_epoch
@@ -1159,23 +1142,6 @@ class MutableIndex:
                 s["pack_rows_repacked"] += int(rows)
             return packed
 
-    def _fused_engine_call(self, packed: PackedComponents, qs, *, k: int,
-                           round_size: int, select: str, impl: str,
-                           **tier_kw) -> tuple:
-        """One fused RDC pass over the capacity-padded packed buffers.
-
-        ``k`` arrives pre-clamped to ``packed.num_series``. Tiered callers
-        add ``eps_factor_sq``/``budget_rounds`` and the ``seed_d``/
-        ``seed_p`` BSF seed.
-        """
-        self._count_call("fused_calls")
-        return packed_engine_args(
-            packed.sax, packed.gpos, packed.block_len, packed.raw, qs,
-            block=packed.block, series_length=packed.series_length,
-            segments=packed.segments, cardinality=packed.cardinality,
-            k=k, round_size=round_size, select=select, impl=impl,
-            **tier_kw)
-
     @staticmethod
     def _use_fused(fused, comps: list, sort: bool,
                    has_cold: bool = False) -> bool:
@@ -1244,19 +1210,14 @@ class MutableIndex:
                 if unknown:
                     raise TypeError(
                         f"unexpected keyword arguments: {sorted(unknown)}")
-                if k < 1:
-                    raise ValueError(f"k must be >= 1, got {k}")
                 packed = self._packed_view(snap)
-                (top_d, top_p, reads, updates,
-                 rounds) = self._fused_engine_call(
-                    packed, qs, k=min(k, packed.num_series),
+                self._count_call("fused_calls")
+                out = search._engine_call(
+                    packed, search._packed_view(packed), qs, k=k,
                     round_size=kw.get("round_size", 4096),
                     select=kw.get("select", "topk"),
                     impl=kw.get("impl", "auto"))
-                top_d, top_p = _pad_missing(top_d, top_p, k)
-                if kw.get("stats", False):
-                    return top_d, top_p, reads, updates, rounds
-                return top_d, top_p
+                return out if kw.get("stats", False) else out[:2]
             self._count_call("component_calls")
             with trace.span("paris.live.merge"):
                 ds, ps = [], []
@@ -1302,15 +1263,12 @@ class MutableIndex:
         with trace.span("paris.live"):  # the exact tier has its own
             if self._use_fused(fused, comps, True, bool(snap.cold)):
                 packed = self._packed_view(snap)
-                eps_f, budget = tier_arrays(tiers, self.device)
-                seed_d, seed_p = packed_seed(comps, qs)
-                top_d, top_p, _, _, _, ach_sq = self._fused_engine_call(
-                    packed, qs, k=min(k, packed.num_series),
+                self._count_call("fused_calls")
+                top_d, top_p, *_, eps = search._engine_call(
+                    packed, search._packed_view(packed), qs, k=k,
                     round_size=round_size, select=select, impl=impl,
-                    eps_factor_sq=eps_f, budget_rounds=budget,
-                    seed_d=seed_d, seed_p=seed_p)
-                top_d, top_p = _pad_missing(top_d, top_p, k)
-                return top_d, top_p, achieved_epsilon(ach_sq)
+                    tier=tiers, seed=packed_seed(comps, qs))
+                return top_d, top_p, eps
             self._count_call("component_calls")
             with trace.span("paris.live.merge"):
                 ds, ps = [], []
@@ -1353,11 +1311,11 @@ class MutableIndex:
             return SearchResult(d[:, 0], p[:, 0], z, z, 0)
         if self._use_fused(fused, comps, cfg.sort, bool(snap.cold)):
             packed = self._packed_view(snap)
-            top_d, top_p, reads, updates, rounds = self._fused_engine_call(
-                packed, qs, k=1, round_size=cfg.round_size,
-                select=cfg.select, impl=cfg.impl)
-            return SearchResult(top_d[:, 0], top_p[:, 0], reads, updates,
-                                rounds)
+            self._count_call("fused_calls")
+            top_d, top_p, *rest = search._engine_call(
+                packed, search._packed_view(packed), qs, k=1,
+                round_size=cfg.round_size, select=cfg.select, impl=cfg.impl)
+            return SearchResult(top_d[:, 0], top_p[:, 0], *rest)
         self._count_call("component_calls")
         pairs = [(shard.base,
                   coldtier.cold_exact_search_batch(shard, qs, cfg))

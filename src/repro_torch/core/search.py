@@ -19,7 +19,11 @@ algorithms work on *squared* distances and return file-order positions.
 
 The engine is ONE function, :func:`_engine_core`, behind the
 :class:`EngineView` hooks, and answers the exact path (5-tuple) and the
-service tiers (6-tuple, :class:`Tier`). The reference runs it as a jitted
+service tiers (6-tuple, :class:`Tier`). Every store's entry points (the
+index here, the packed store, the cold shard, the live store) build their
+store's view and go through ONE front door, :func:`_engine_call`, which
+checks the queries and k, builds the tier rows and pads the answer. The
+reference runs the engine as a jitted
 ``while_loop``; here it is a host loop over device tensors, and each round
 reads one flag back from the device to decide whether to go on. The round
 count is the reference's: ``rounds`` and ``reads`` are outputs the tests
@@ -303,19 +307,6 @@ class CandidateList:
                 _cols(bounds, r * rs - lo, rs, INF))
 
 
-def _smallest(lb: torch.Tensor, k: int, impl: str = "auto") -> tuple:
-    """The k smallest bounds per row, ascending, ties toward the lower column.
-
-    ``lax.top_k`` in the reference breaks ties toward the lower index;
-    ``torch.topk`` promises no tie order. :func:`ops.smallest` orders by
-    (bound bits, column), exactly as the reference's unique keys do, on the
-    card by the selection kernels and on the CPU by ``torch.topk`` over
-    int64 ``(bits << 32) | column`` keys. Returns ((Q, k) int32 columns,
-    (Q, k) float32 bounds).
-    """
-    return ops.smallest(lb, k, impl=impl)
-
-
 def dedup_mask(cand_pos: torch.Tensor, top_d: torch.Tensor,
                top_p: torch.Tensor) -> torch.Tensor:
     """(Q, R) mask of candidates already present in the (Q, k) result list.
@@ -354,8 +345,8 @@ class EngineView:
     """The storage hooks that specialize the ONE RDC engine core.
 
       n_rows        candidate rows the LBC pass covers
-      num_series    real series behind those rows, for k validation
-                    (None: the caller has already clamped k)
+      num_series    real series behind those rows: :func:`_engine_call`
+                    clamps k to it
       segments      PAA word width of the stored SAX rows
       lower_bounds  ((Q, w) query PAA, impl) -> (Q, n_rows) squared lower
                     bounds; padding rows must come back +inf
@@ -376,7 +367,7 @@ class EngineView:
     """
 
     n_rows: int
-    num_series: Optional[int]
+    num_series: int
     segments: int
     lower_bounds: Callable
     positions: Callable
@@ -385,8 +376,10 @@ class EngineView:
 
 
 def _index_view(index: ParISIndex, *, leaf_cap: int) -> EngineView:
-    """Single-index hooks: identity positions + approx-seeded BSF."""
-    bpp = isax.padded_breakpoints(index.cardinality, index.device)
+    """Single-index hooks: identity positions + approx-seeded BSF. The
+    breakpoint upload runs under a ``paris.engine.view`` span."""
+    with trace.span("paris.engine.view"):
+        bpp = isax.padded_breakpoints(index.cardinality, index.device)
     leaf = min(int(leaf_cap), index.num_series)
 
     def lower_bounds(qps, impl):
@@ -447,9 +440,11 @@ def _engine_core(
     """THE batched RDC loop — the single engine core behind every search.
 
     (Q, n) queries -> ((Q, k) dists, (Q, k) int32 positions, (Q,) reads,
-    (Q,) bsf updates, rounds). One host loop drives all Q queries: per-query
-    BSF vector, per-query candidate order, per-query round masks, and a
-    joint early exit once no query's next lower bound beats its k-th best.
+    (Q,) bsf updates, rounds), for 1 <= k <= the view's ``num_series``
+    (:func:`_engine_call` clamps it). One host loop drives all Q queries:
+    per-query BSF vector, per-query candidate order, per-query round masks,
+    and a joint early exit once no query's next lower bound beats its k-th
+    best.
 
     ``select="topk"`` keeps only the ``select_len`` smallest bounds per
     query; exactness is kept by a fallback scan over the full row order that
@@ -458,7 +453,7 @@ def _engine_core(
     already in the result list (:func:`dedup_mask`). ``sort=False`` is the
     ADS+-style serial scan (row order, no early exit).
 
-    Passing BOTH ``eps_factor_sq`` and ``budget_rounds`` ((Q,) tensors,
+    Passing ``eps_factor_sq`` and ``budget_rounds`` ((Q,) tensors,
     :func:`tier_arrays`) runs the TIERED variant, which returns a sixth
     output, the per-query achieved squared error factor; tiers require
     ``sort=True``. Without them the engine is the exact path.
@@ -467,12 +462,7 @@ def _engine_core(
     start at 0), else from the view's seed hook (reads start at its window
     size), else cold at (+inf, ``NO_POS``) with reads at 0.
     """
-    if view.num_series is not None and not 1 <= k <= view.num_series:
-        raise ValueError(f"k={k} outside [1, {view.num_series}]")
     tiered = eps_factor_sq is not None
-    if tiered and budget_rounds is None:
-        raise ValueError("tiered engine needs both eps_factor_sq and "
-                         "budget_rounds (see tier_arrays)")
     if tiered and not sort:
         raise ValueError("service tiers require the sorted-candidate "
                          "engine (sort=True)")
@@ -682,14 +672,49 @@ def _pad_missing(top_d, top_p, k: int):
             torch.cat([top_p, top_p.new_full((n_q, short), NO_POS)], dim=1))
 
 
-def _run_engine(index: ParISIndex, qs: torch.Tensor, *, k: int,
-                round_size: int, leaf_cap: int, sort: bool, select: str,
-                impl: str, eps_factor_sq=None, budget_rounds=None) -> tuple:
-    with trace.span("paris.engine.view"):
-        view = _index_view(index, leaf_cap=leaf_cap)
-    return _engine_core(
-        view, qs, k=k, round_size=round_size, sort=sort, select=select,
-        impl=impl, eps_factor_sq=eps_factor_sq, budget_rounds=budget_rounds)
+def _engine_call(store, view: EngineView, queries, *, k: int,
+                 round_size: int, select: str, impl: str, sort: bool = True,
+                 tier=None, seed: Optional[tuple] = None,
+                 pad: int = 0) -> tuple:
+    """The call protocol of every store's entries around :func:`_engine_core`.
+
+    ``queries`` must be (Q, n) for ``store`` (an index, a packed store or a
+    cold shard) and on its device. ``k < 1`` raises; a larger k than the
+    view's ``num_series`` is answered with the real neighbors and (INF,
+    ``NO_POS``) in the remaining slots. ``tier=None`` runs the exact
+    engine; otherwise ``tier`` is one :class:`Tier` or one a query, and the
+    last ``pad`` rows of ``queries``, which only fill a bucket
+    (:func:`_batch_engine`), get factor 1 and a zero round budget: inert
+    rows, which never extend the loop. ``seed`` is a ``((Q,) dist, (Q,)
+    pos)`` BSF seed; without one the view's seed hook seeds the BSF, or it
+    starts cold at (+inf, ``NO_POS``).
+
+    Returns ((Q, k) dists ascending, (Q, k) int32 positions, (Q,) reads,
+    (Q,) bsf updates, rounds) and, tiered, the (Q,) numpy achieved epsilon.
+    """
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    qs = _queries(store, queries)
+    if view.num_series < 1:
+        raise ValueError("the store holds no series")
+    tier_rows = {}
+    if tier is not None:
+        eps_f, budget = tier_arrays(_tier_list(tier, qs.shape[0] - pad),
+                                    qs.device)
+        if pad:
+            eps_f = torch.cat([eps_f, eps_f.new_ones(pad)])
+            budget = torch.cat([budget, budget.new_zeros(pad)])
+        tier_rows = dict(eps_factor_sq=eps_f, budget_rounds=budget)
+    if seed is not None:
+        seed = (as_f32(seed[0], qs.device),
+                torch.as_tensor(seed[1], device=qs.device).to(torch.int32))
+    top_d, top_p, *rest = _engine_core(
+        view, qs, k=min(k, view.num_series), round_size=round_size,
+        sort=sort, select=select, impl=impl, seed0=seed, **tier_rows)
+    top_d, top_p = _pad_missing(top_d, top_p, k)
+    if tier is not None:
+        rest[-1] = achieved_epsilon(rest[-1])
+    return (top_d, top_p, *rest)
 
 
 def knn_batch_tiered(
@@ -709,22 +734,31 @@ def knn_batch_tiered(
     or a sequence of per-query :class:`Tier` values. Runs on the index's
     device.
     """
-    if k < 1:
-        raise ValueError(f"k must be >= 1, got {k}")
-    qs = _queries(index, queries)
-    eps_f, budget = tier_arrays(_tier_list(tier, qs.shape[0]), qs.device)
-    top_d, top_p, _, _, _, ach_sq = _run_engine(
-        index, qs, k=min(k, index.num_series), round_size=round_size,
-        leaf_cap=leaf_cap, sort=True, select=select, impl=impl,
-        eps_factor_sq=eps_f, budget_rounds=budget)
-    top_d, top_p = _pad_missing(top_d, top_p, k)
-    return top_d, top_p, achieved_epsilon(ach_sq)
+    top_d, top_p, *_, eps = _engine_call(
+        index, _index_view(index, leaf_cap=leaf_cap), queries, k=k,
+        round_size=round_size, select=select, impl=impl, tier=tier)
+    return top_d, top_p, eps
 
 
 # --- The packed multi-component path: base + runs + deltas in one sweep. ---
 
 # Rows per block of the packed layout: the lb_multi registry default.
 DEFAULT_PACK_BLOCK = tuning.KERNELS["lb_multi"].defaults["block_n"]
+
+
+def _pack_block(block: Optional[int], num_series: int, device) -> int:
+    """The packed layout's ``block_n``: ``block``, else the tuning table's.
+
+    The block is a layout baked into the buffer (appends extend it in
+    block units), so a store resolves it once: the ``lb_multi`` entry for
+    Q = ``tuning.PACK_Q``, its canonical batch, and ``num_series`` on
+    ``device``; :data:`DEFAULT_PACK_BLOCK`, 128, on a miss, as on the CPU.
+    """
+    if block is not None:
+        return block
+    return tuning.resolve_blocks("lb_multi", q=tuning.PACK_Q,
+                                 n=max(num_series, 1),
+                                 device=device)["block_n"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -788,19 +822,15 @@ def pack_components(components, block: Optional[int] = None
     ``components`` must come in ascending offset order and cover
     contiguous, adjacent file ranges starting at 0. Zero-series components
     are skipped. ``block=None`` resolves the layout's ``block_n`` through
-    the tuning table (the ``lb_multi`` entry for Q = ``tuning.PACK_Q``, its
-    canonical batch, and the store's total size on the components' device;
-    :data:`DEFAULT_PACK_BLOCK`, 128, on a miss, as on the CPU). The block
-    is a layout baked into the buffer, so it is picked here, once.
+    the tuning table for the store's total size on the components' device
+    (:func:`_pack_block`).
     """
     comps = [(ix, off) for ix, off in components if ix.num_series]
     if not comps:
         raise ValueError("pack_components needs at least one nonempty "
                          "component")
-    if block is None:
-        block = tuning.resolve_blocks(
-            "lb_multi", q=tuning.PACK_Q, n=sum(ix.num_series for ix, _ in comps),
-            device=comps[0][0].device)["block_n"]
+    block = _pack_block(block, sum(ix.num_series for ix, _ in comps),
+                        comps[0][0].device)
     expect = 0
     for ix, off in comps:
         if off != expect:
@@ -823,18 +853,7 @@ def pack_components(components, block: Optional[int] = None
     )
 
 
-def _packed_view(
-    sax: torch.Tensor,
-    gpos: torch.Tensor,
-    block_len: torch.Tensor,
-    raw: torch.Tensor,
-    *,
-    block: int,
-    series_length: int,
-    segments: int,
-    cardinality: int,
-    num_series: Optional[int],
-) -> EngineView:
+def _packed_view(packed: PackedComponents) -> EngineView:
     """Packed-buffer hooks: the fused multi-component sweep over the core.
 
     ONE masked lower-bound pass over the packed SAX buffer, candidate
@@ -844,31 +863,23 @@ def _packed_view(
     out of every mask). No seed hook: a packed buffer has no global
     bucket table, so the BSF starts at +inf unless the caller seeds it.
     """
-    bpp = isax.padded_breakpoints(cardinality, sax.device)
+    bpp = isax.padded_breakpoints(packed.cardinality, packed.device)
 
     def lower_bounds(qps, impl):
         return ops.lower_bound_sq_multi(
-            qps, sax, bpp, series_length, block_len, impl=impl,
-            block_n=block)
+            qps, packed.sax, bpp, packed.series_length, packed.block_len,
+            impl=impl, block_n=packed.block)
 
     return EngineView(
-        n_rows=sax.shape[0],
-        num_series=num_series,
-        segments=segments,
+        n_rows=packed.sax.shape[0],
+        num_series=packed.num_series,
+        segments=packed.segments,
         lower_bounds=lower_bounds,
-        positions=lambda idx: gpos[idx.to(torch.int64)],
+        positions=lambda idx: packed.gpos[idx.to(torch.int64)],
         distances=lambda qs, pos, impl, mask: ops.euclid_sq_gather(
-            qs, raw, pos, impl=impl),
+            qs, packed.raw, pos, impl=impl),
         seed=None,
     )
-
-
-def _packed_view_of(packed: PackedComponents, num_series) -> EngineView:
-    return _packed_view(
-        packed.sax, packed.gpos, packed.block_len, packed.raw,
-        block=packed.block, series_length=packed.series_length,
-        segments=packed.segments, cardinality=packed.cardinality,
-        num_series=num_series)
 
 
 def packed_engine_args(
@@ -894,20 +905,24 @@ def packed_engine_args(
     """The fused packed engine over buffers passed as arguments.
 
     The buffers may be capacity-padded (dead tail blocks with
-    ``block_len == 0``). Callers clamp ``k`` themselves: the store's real
-    size is not known here, so the core skips its k check. Tiered calls
-    pass ``eps_factor_sq``/``budget_rounds`` (:func:`tier_arrays`) and get
-    the 6-tuple; ``seed_d``/``seed_p`` optionally seed each query's BSF
-    with a (distance, global position) pair (:func:`packed_seed`).
+    ``block_len == 0``). The engine core runs as given: callers clamp
+    ``k`` themselves, since the store's real size is not known here.
+    Tiered calls pass ``eps_factor_sq``/``budget_rounds``
+    (:func:`tier_arrays`) and get the 6-tuple, the squared factor last;
+    ``seed_d``/``seed_p`` optionally seed each query's BSF with a
+    (distance, global position) pair (:func:`packed_seed`).
     """
-    view = _packed_view(
-        sax, gpos, block_len, raw, block=block, series_length=series_length,
-        segments=segments, cardinality=cardinality, num_series=None)
+    packed = PackedComponents(
+        sax=sax, gpos=gpos, block_len=block_len, raw=raw,
+        num_series=raw.shape[0],  # an upper bound; the core reads no count
+        block=block, series_length=series_length, segments=segments,
+        cardinality=cardinality)
     seed0 = None if seed_d is None else (seed_d, seed_p)
     return _engine_core(
-        view, as_f32(queries, sax.device), k=k, round_size=round_size,
-        sort=True, select=select, impl=impl, eps_factor_sq=eps_factor_sq,
-        budget_rounds=budget_rounds, seed0=seed0)
+        _packed_view(packed), as_f32(queries, sax.device), k=k,
+        round_size=round_size, sort=True, select=select, impl=impl,
+        eps_factor_sq=eps_factor_sq, budget_rounds=budget_rounds,
+        seed0=seed0)
 
 
 def exact_knn_batch_packed(
@@ -926,16 +941,9 @@ def exact_knn_batch_packed(
     protocol as :func:`exact_knn_batch`, and the same answers as that
     function over one index built from the concatenated data.
     """
-    if k < 1:
-        raise ValueError(f"k must be >= 1, got {k}")
-    k_eff = min(k, packed.num_series)
-    top_d, top_p, reads, updates, rounds = _engine_core(
-        _packed_view_of(packed, packed.num_series), _queries(packed, queries),
-        k=k_eff, round_size=round_size, sort=True, select=select, impl=impl)
-    top_d, top_p = _pad_missing(top_d, top_p, k)
-    if stats:
-        return top_d, top_p, reads, updates, rounds
-    return top_d, top_p
+    out = _engine_call(packed, _packed_view(packed), queries, k=k,
+                       round_size=round_size, select=select, impl=impl)
+    return out if stats else out[:2]
 
 
 def packed_seed(components, queries, leaf_cap: int = 256) -> tuple:
@@ -976,25 +984,10 @@ def knn_batch_packed_tiered(
     (+inf, ``NO_POS``), which weakens (never breaks) the budget tier's
     achieved bounds.
     """
-    if k < 1:
-        raise ValueError(f"k must be >= 1, got {k}")
-    qs = _queries(packed, queries)
-    n_q = qs.shape[0]
-    eps_f, budget = tier_arrays(_tier_list(tier, n_q), qs.device)
-    if seed is None:
-        seed_d = torch.full((n_q,), INF, device=qs.device)
-        seed_p = torch.full((n_q,), NO_POS, dtype=torch.int32,
-                            device=qs.device)
-    else:
-        seed_d = as_f32(seed[0], qs.device)
-        seed_p = torch.as_tensor(seed[1], device=qs.device).to(torch.int32)
-    top_d, top_p, _, _, _, ach_sq = _engine_core(
-        _packed_view_of(packed, packed.num_series), qs,
-        k=min(k, packed.num_series), round_size=round_size, sort=True,
-        select=select, impl=impl, eps_factor_sq=eps_f, budget_rounds=budget,
-        seed0=(seed_d, seed_p))
-    top_d, top_p = _pad_missing(top_d, top_p, k)
-    return top_d, top_p, achieved_epsilon(ach_sq)
+    top_d, top_p, *_, eps = _engine_call(
+        packed, _packed_view(packed), queries, k=k, round_size=round_size,
+        select=select, impl=impl, tier=tier, seed=seed)
+    return top_d, top_p, eps
 
 
 def exact_search_batch_packed(
@@ -1012,11 +1005,10 @@ def exact_search_batch_packed(
         raise ValueError(
             "the packed engine has no sort=False (serial-scan) mode; use "
             "the per-component path")
-    top_d, top_p, reads, updates, rounds = _engine_core(
-        _packed_view_of(packed, packed.num_series), _queries(packed, queries),
-        k=1, round_size=cfg.round_size, sort=True, select=cfg.select,
-        impl=cfg.impl)
-    return SearchResult(top_d[:, 0], top_p[:, 0], reads, updates, rounds)
+    top_d, top_p, *rest = _engine_call(
+        packed, _packed_view(packed), queries, k=1,
+        round_size=cfg.round_size, select=cfg.select, impl=cfg.impl)
+    return SearchResult(top_d[:, 0], top_p[:, 0], *rest)
 
 
 def pow2_bucket(n: int, lo: int = 1) -> int:
@@ -1049,33 +1041,27 @@ def make_batch_engine(
     ``engine.bucket(qn)`` is the padded batch size of a Q-query call.
     """
     return _batch_engine(
-        index, _run_engine, k=k, round_size=round_size, leaf_cap=leaf_cap,
-        sort=sort, select=select, impl=impl, min_bucket=min_bucket)
+        index, lambda: _index_view(index, leaf_cap=leaf_cap), k=k,
+        round_size=round_size, sort=sort, select=select, impl=impl,
+        min_bucket=min_bucket)
 
 
-def _batch_engine(index, run: Callable, *, k, round_size, leaf_cap, sort,
-                  select, impl, min_bucket):
-    """:func:`make_batch_engine` over any store ``run`` drives.
-
-    ``run(index, qs, k=, round_size=, leaf_cap=, sort=, select=, impl=,
-    [eps_factor_sq=, budget_rounds=])`` is the engine call: the in-memory
-    :func:`_run_engine`, or the cold tier's over a ``ColdShard``.
-    """
+def _batch_engine(store, view_of: Callable, *, k, round_size, sort, select,
+                  impl, min_bucket):
+    """:func:`make_batch_engine` over any store: ``view_of()`` builds the
+    store's :class:`EngineView` for a call (the in-memory index's, or the
+    cold tier's over a ``ColdShard``)."""
     if k is not None and k < 1:
         raise ValueError(f"k must be None (1-NN mode) or >= 1, got {k}")
-    k_eff = 1 if k is None else min(k, index.num_series)
 
     def bucket(qn: int) -> int:
         return pow2_bucket(qn, min_bucket)
 
     def engine(queries, tiers=None):
-        qs = _queries(index, queries)
+        qs = _queries(store, queries)
         qn = qs.shape[0]
         if tiers is not None:
-            tiers = [as_tier(t) for t in tiers]
-            if len(tiers) != qn:
-                raise ValueError(
-                    f"got {len(tiers)} tiers for {qn} queries")
+            tiers = _tier_list(tiers, qn)
             if all(t.kind == "exact" for t in tiers):
                 tiers = None  # pure-exact batch: the exact path
             elif k is None:
@@ -1085,27 +1071,20 @@ def _batch_engine(index, run: Callable, *, k, round_size, leaf_cap, sort,
         b = bucket(qn)
         if b > qn:  # pad rows repeat a real query; sliced off below
             qs = torch.cat([qs, qs[:1].expand(b - qn, -1)])
-        common = dict(k=k_eff, round_size=round_size, leaf_cap=leaf_cap,
-                      sort=sort, select=select, impl=impl)
+        top_d, top_p, reads, updates, rounds, *eps = _engine_call(
+            store, view_of(), qs, k=1 if k is None else k,
+            round_size=round_size, sort=sort, select=select, impl=impl,
+            tier=tiers, pad=b - qn)
         if tiers is not None:
-            eps_f, budget = tier_arrays(tiers, qs.device)
-            if b > qn:  # pad rows: factor 1, zero budget — inert rows
-                eps_f = torch.cat([eps_f, eps_f.new_ones(b - qn)])
-                budget = torch.cat([budget, budget.new_zeros(b - qn)])
-            top_d, top_p, _, _, _, ach_sq = run(
-                index, qs, eps_factor_sq=eps_f, budget_rounds=budget,
-                **common)
-            top_d, top_p = _pad_missing(top_d[:qn], top_p[:qn], k)
-            return top_d, top_p, achieved_epsilon(ach_sq[:qn])
-        top_d, top_p, reads, updates, rounds = run(index, qs, **common)
+            return top_d[:qn], top_p[:qn], eps[0][:qn]
         if k is None:
             return SearchResult(
                 top_d[:qn, 0], top_p[:qn, 0], reads[:qn], updates[:qn],
                 rounds)
-        return _pad_missing(top_d[:qn], top_p[:qn], k)
+        return top_d[:qn], top_p[:qn]
 
     engine.bucket = bucket
-    engine.index = index
+    engine.index = store
     engine.k = k
     return engine
 
@@ -1114,11 +1093,11 @@ def exact_search_batch(
     index: ParISIndex, queries, cfg: SearchConfig = SearchConfig()
 ) -> SearchResult:
     """Batched ParIS+ exact 1-NN: (Q, n) queries -> SearchResult of (Q,)."""
-    top_d, top_p, reads, updates, rounds = _run_engine(
-        index, _queries(index, queries), k=1, round_size=cfg.round_size,
-        leaf_cap=cfg.leaf_cap, sort=cfg.sort, select=cfg.select,
+    top_d, top_p, *rest = _engine_call(
+        index, _index_view(index, leaf_cap=cfg.leaf_cap), queries, k=1,
+        round_size=cfg.round_size, sort=cfg.sort, select=cfg.select,
         impl=cfg.impl)
-    return SearchResult(top_d[:, 0], top_p[:, 0], reads, updates, rounds)
+    return SearchResult(top_d[:, 0], top_p[:, 0], *rest)
 
 
 def exact_knn_batch(
@@ -1139,16 +1118,10 @@ def exact_knn_batch(
     slots. ``stats=True`` appends the per-query (raw_reads, bsf_updates)
     and the round count.
     """
-    if k < 1:
-        raise ValueError(f"k must be >= 1, got {k}")
-    top_d, top_p, reads, updates, rounds = _run_engine(
-        index, _queries(index, queries), k=min(k, index.num_series),
-        round_size=round_size, leaf_cap=leaf_cap, sort=sort, select=select,
-        impl=impl)
-    top_d, top_p = _pad_missing(top_d, top_p, k)
-    if stats:
-        return top_d, top_p, reads, updates, rounds
-    return top_d, top_p
+    out = _engine_call(
+        index, _index_view(index, leaf_cap=leaf_cap), queries, k=k,
+        round_size=round_size, sort=sort, select=select, impl=impl)
+    return out if stats else out[:2]
 
 
 def exact_search(

@@ -75,8 +75,6 @@ _SIGNATURES = {
                                 _I, _VP),
     # query, data, best key, B, n, stream
     "euclid_min_launch": (_VP, _VP, _VP, _L, _I, _VP),
-    # lb, cols, bounds, scratch, scratch words, Q, L, k, stream
-    "smallest_launch": (_VP, _VP, _VP, _VP, _L, _I, _L, _L, _VP),
     # lb, cols, bounds, kth, scratch, scratch words, Q, L, k, stream
     "select_launch": (_VP, _VP, _VP, _VP, _VP, _L, _I, _L, _L, _VP),
     # list bounds, list cols, cut bounds, cut cols, out cols, out bounds,
@@ -169,8 +167,7 @@ def load() -> ctypes.CDLL:
             fn = getattr(lib, fn_name)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
-        for fn_name, argtypes in (("smallest_scratch_words", [_I, _L, _L]),
-                                  ("select_scratch_words", [_I, _L]),
+        for fn_name, argtypes in (("select_scratch_words", [_I, _L]),
                                   ("order_range_scratch_words",
                                    [_I, _L, _L])):
             getattr(lib, fn_name).argtypes = argtypes

@@ -1,9 +1,8 @@
 // The candidate selection: (Q, L) f32 bounds -> the k smallest of each row,
-// ties toward the lower column. Three C entries share its kernels:
-//   smallest_launch      the k smallest, ascending: ((Q, k) int32 columns,
-//                        (Q, k) f32 bounds);
-//   select_launch        the same k pairs in column order, unsorted, and
-//                        each row's k-th smallest bound (the engine's
+// ties toward the lower column. Two C entries share its kernels:
+//   select_launch        the k pairs in column order, unsorted: ((Q, k)
+//                        int32 columns, (Q, k) f32 bounds), and each
+//                        row's k-th smallest bound (the engine's
 //                        phase 1: what the exactness fallback needs);
 //   order_range_launch   ranks [lo, hi) of such a column-order list in
 //                        (bound bits, column) order (phase 2: the engine
@@ -11,10 +10,10 @@
 //
 // Replaces the TPU kernel: none. The reference selects its candidate list
 // with jax.lax.top_k (repro/core/search.py:592), which XLA lowers itself.
-// Added because torch.topk over int64 keys (bits << 32) | column, the plain
-// version (kernels/ref.py::smallest), builds an 8.6 GB key tensor at (64,
+// Added because torch.topk over int64 keys (bits << 32) | column, the
+// oracle (kernels/ref.py::smallest), builds an 8.6 GB key tensor at (64,
 // 2^24) and takes 61 ms a batch to select over and sort 8-byte keys; these
-// entries give its answers bit for bit.
+// entries give its answers bit for bit, one prefix of them at a time.
 //
 // Keys. A bound's 32 bits, read as a signed integer, order the int64 key's
 // high half; u = bits ^ 0x80000000 orders the same way as an unsigned
@@ -53,9 +52,9 @@
 //      return at once. The pairs ping-pong between the scratch and the
 //      outputs so that the last pass a row needs lands in the outputs,
 //      where keys are stored as float bits.
-// With k == L (a full sort) step 1 only takes each row's least and largest
-// u, and step 2 copies the row. select_launch stops after step 2 and
-// writes T. order_range_launch runs all three on the list with k = hi, its
+// With k == L (the whole row selected) step 1 only takes each row's least
+// and largest u, and step 2 copies the row. select_launch stops after step
+// 2 and writes T. order_range_launch runs all three on the list with k = hi, its
 // entries' columns taken from the list, and drops ranks below lo from the
 // compaction: those are the pairs (u, column) <= the rank lo - 1 pair,
 // which the caller passes (the last entry of the prefix it already holds),
@@ -850,32 +849,15 @@ bool bad_shape(int Q, long long L, long long k) {
 
 }  // namespace
 
-// Words of int32 scratch that smallest_launch needs for (Q, L) bounds and k.
-extern "C" long long smallest_scratch_words(int Q, long long L, long long k) {
-  return layout(Q, L, k).total;
-}
-
-// lb: (Q, L) f32; cols, bounds: (Q, k) outputs; scratch: `words` int32
-// words (smallest_scratch_words). Queues every kernel on `stream` and
-// returns the first launch error, or 0.
-extern "C" int smallest_launch(const void* lb, void* cols, void* bounds,
-                               void* scratch, long long words, int Q,
-                               long long L, long long k, void* stream) {
-  if (bad_shape(Q, L, k)) return (int)cudaErrorInvalidValue;
-  const Layout a = layout(Q, L, k);
-  if (words < a.total) return (int)cudaErrorInvalidValue;
-  const Call c{(const uint32_t*)lb, nullptr, nullptr, nullptr,
-               (uint32_t*)bounds, (int32_t*)cols, nullptr, Q, L, k, k, true};
-  return queue(c, (uint32_t*)scratch, a, (cudaStream_t)stream);
-}
-
 // Words of int32 scratch that select_launch needs for (Q, L) bounds.
 extern "C" long long select_scratch_words(int Q, long long L) {
   return layout(Q, L, 0).total;
 }
 
-// smallest_launch's pairs in column order, unsorted, and kth: (Q,) f32,
-// each row's k-th smallest bound.
+// lb: (Q, L) f32; cols, bounds: (Q, k) outputs, the k smallest (u, column)
+// pairs in column order, unsorted; kth: (Q,) f32, each row's k-th smallest
+// bound; scratch: `words` int32 words (select_scratch_words). Queues every
+// kernel on `stream` and returns the first launch error, or 0.
 extern "C" int select_launch(const void* lb, void* cols, void* bounds,
                              void* kth, void* scratch, long long words, int Q,
                              long long L, long long k, void* stream) {

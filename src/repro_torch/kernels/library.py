@@ -1,4 +1,4 @@
-"""The nine kernel entries as PyTorch operators: ``torch.ops.repro_torch.*``.
+"""The eight kernel entries as PyTorch operators: ``torch.ops.repro_torch.*``.
 
 A ``*_cuda`` wrapper hands raw pointers to ``ctypes``, so it cannot run on
 a fake tensor, and a tracer cannot see through it. Each entry is therefore
@@ -61,9 +61,6 @@ SCHEMAS = {
     "euclid_min": (
         "euclid_min(Tensor query, Tensor data) -> (Tensor, Tensor)",
         _euclid.euclid_min_cuda),
-    "smallest": (
-        "smallest(Tensor lb, int k) -> (Tensor, Tensor)",
-        _select.smallest_cuda),
     "select": (
         "select(Tensor lb, int k) -> (Tensor, Tensor, Tensor)",
         _select.select_cuda),
@@ -119,12 +116,6 @@ def _euclid_fake(queries, raw, positions, *, threads=None,
 @torch.library.register_fake(f"{NAMESPACE}::euclid_min")
 def _euclid_min_fake(query, data):
     return _empty(data), _empty(data, dtype=torch.int32)
-
-
-@torch.library.register_fake(f"{NAMESPACE}::smallest")
-def _smallest_fake(lb, k):
-    return (_empty(lb, lb.shape[0], k, dtype=torch.int32),
-            _empty(lb, lb.shape[0], k))
 
 
 @torch.library.register_fake(f"{NAMESPACE}::select")

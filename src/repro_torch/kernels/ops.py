@@ -44,7 +44,6 @@ KERNELS = {
     "lower_bound_sq_multi": (_lb, "multi_launches"),
     "euclid_sq": (_euclid, "launches"),
     "euclid_min": (_euclid, "min_launches"),
-    "smallest": (_select, "launches"),
     "select": (_select, "select_launches"),
     "order_range": (_select, "range_launches"),
 }
@@ -237,22 +236,12 @@ def euclid_min(
     return _OPS.euclid_min(query.contiguous(), data)
 
 
-def smallest(lb: torch.Tensor, k: int, *, impl: str = "auto") -> tuple:
-    """(Q, L) bounds -> the k smallest a row, ascending, ties toward the
-    lower column: ((Q, k) int32 columns, (Q, k) float32 bounds).
-
-    The same bits on both paths; on the card one launch set of the
-    selection kernels (``csrc/select.cu``).
-    """
-    if not _use_kernel(lb, impl):
-        return _ref.smallest(lb, k)
-    return _OPS.smallest(lb.contiguous(), k)
-
-
 def select(lb: torch.Tensor, k: int, *, impl: str = "auto") -> tuple:
-    """(Q, L) bounds -> :func:`smallest`'s k entries of each row in column
-    order, unsorted, and each row's k-th smallest bound: ((Q, k) int32
-    columns, (Q, k) float32 bounds, (Q,) float32).
+    """(Q, L) bounds -> the k smallest of each row, ties toward the lower
+    column (``ref.smallest``'s entries), in column order, unsorted, and
+    each row's k-th smallest bound: ((Q, k) int32 columns, (Q, k) float32
+    bounds, (Q,) float32). On the card one launch set of the selection
+    kernels (``csrc/select.cu``).
 
     The engine's first selection phase; :func:`order_range` orders what
     the round loop reaches of it.
@@ -267,7 +256,7 @@ def order_range(bounds: torch.Tensor, cols: torch.Tensor, lo: int, hi: int,
                 impl: str = "auto") -> tuple:
     """Ranks [lo, hi) of each row of a (Q, L) column-order list
     (:func:`select`'s) in (bound bits, column) order: ((Q, hi - lo) int32
-    columns, (Q, hi - lo) float32 bounds), bit for bit ``smallest``'s
+    columns, (Q, hi - lo) float32 bounds), bit for bit ``ref.smallest``'s
     entries lo..hi-1 of the bounds the list came from.
 
     ``prev_bounds``/``prev_cols`` ((Q,)) are each row's rank lo - 1 entry,

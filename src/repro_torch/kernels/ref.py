@@ -9,10 +9,9 @@ and the three lower bounds). Every sum over the last axis uses
 ``isax.sum_last``, the reference's order, so on the CPU these functions
 match the JAX package's plain versions bit for bit; the ``euclid_sq``
 and ``euclid_min`` kernels sum in another order and are held to them with
-a tolerance. :func:`smallest` is the selection kernel's plain version, the
-engine's ``torch.topk`` over int64 keys; :func:`select` and
-:func:`order_range`, the engine's two phases of it, are built on the same
-keys.
+a tolerance. :func:`smallest`, a ``torch.topk`` over int64 keys, is the
+selection's oracle; :func:`select` and :func:`order_range`, the plain
+versions of the selection kernels' two phases, are built on the same keys.
 """
 
 from __future__ import annotations

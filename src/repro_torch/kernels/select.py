@@ -1,9 +1,8 @@
 """Wrappers of the hand-written selection kernels (``csrc/select.cu``).
 
-:func:`smallest_cuda` gives the k smallest bounds of each row of a (Q, L)
-float32 tensor, ascending, ties toward the lower column: ((Q, k) int32
-columns, (Q, k) float32 bounds), bit for bit what ``ref.smallest`` (the
-int64-key ``torch.topk``) gives. The engine splits the same work in two:
+The k smallest bounds of each row of a (Q, L) float32 tensor, ascending,
+ties toward the lower column, bit for bit what ``ref.smallest`` (the
+int64-key ``torch.topk``) gives, in two phases that the engine runs apart:
 :func:`select_cuda` gives those k pairs in column order, unsorted, and each
 row's k-th smallest bound; :func:`order_range_cuda` puts ranks [lo, hi) of
 such a list in (bound bits, column) order, so that only the prefix the
@@ -22,8 +21,7 @@ import torch
 from repro_torch.kernels import _build
 
 # One launch set (every kernel of one call) since the caller last set it
-# to 0: smallest, select and order_range.
-launches = _build.LaunchCounter()
+# to 0: select and order_range.
 select_launches = _build.LaunchCounter()
 range_launches = _build.LaunchCounter()
 
@@ -38,27 +36,6 @@ def _check_rows(lb: torch.Tensor, k: int, what: str = "k") -> None:
         raise ValueError(f"at most {MAX_ROWS} rows per launch, got {n_q}")
     if n > 2 ** 31 - 1:
         raise ValueError(f"at most 2**31 - 1 columns (int32), got {n}")
-
-
-def smallest_cuda(lb: torch.Tensor, k: int) -> tuple:
-    """(Q, L) f32 bounds on the card -> ((Q, k) int32 columns, (Q, k) f32)."""
-    _build.require(lb, "lb", torch.float32, 2)
-    n_q, n = lb.shape
-    k = int(k)
-    _check_rows(lb, k)
-    cols = torch.empty((n_q, k), dtype=torch.int32, device=lb.device)
-    bounds = torch.empty((n_q, k), dtype=torch.float32, device=lb.device)
-    if n_q == 0:
-        return cols, bounds
-    lib = _build.load()
-    words = lib.smallest_scratch_words(n_q, n, k)
-    scratch = torch.empty((words,), dtype=torch.int32, device=lb.device)
-    err = lib.smallest_launch(lb.data_ptr(), cols.data_ptr(),
-                              bounds.data_ptr(), scratch.data_ptr(), words,
-                              n_q, n, k, _build.stream_of(lb))
-    _build.check(err, "smallest")
-    launches.add()
-    return cols, bounds
 
 
 def select_cuda(lb: torch.Tensor, k: int) -> tuple:

@@ -86,10 +86,9 @@ def kernel_cost(name: str, **shape) -> dict:
         3 operations a value;
       * ``euclid_min`` (``b`` rows of ``n``): the rows, the query and one
         8-byte key; 3 operations a value;
-      * ``smallest`` (``q`` rows of ``n`` bounds, ``k`` kept a row): the
-        bounds read once and the (Q, k) int32 columns and f32 bounds
-        written once; no fp32 arithmetic;
-      * ``select`` (the same): as ``smallest``, and the (Q,) k-th bounds;
+      * ``select`` (``q`` rows of ``n`` bounds, ``k`` kept a row): the
+        bounds read once, the (Q, k) int32 columns and f32 bounds and the
+        (Q,) k-th bounds written once; no fp32 arithmetic;
       * ``order_range`` (``q`` rows of a list of ``n`` entries, ``m`` =
         hi - lo ordered a row): the list's bounds read once, the ``m``
         columns of the range read, and the (Q, m) pairs written.
@@ -123,9 +122,6 @@ def kernel_cost(name: str, **shape) -> dict:
     if name == "euclid_min":
         b, n = s["b"], s["n"]
         return dict(bytes=b * n * 4 + n * 4 + 8, ops=b * 3 * n)
-    if name == "smallest":
-        q, n, k = s["q"], s["n"], s["k"]
-        return dict(bytes=q * n * 4 + q * k * 8, ops=0)
     if name == "select":
         q, n, k = s["q"], s["n"], s["k"]
         return dict(bytes=q * n * 4 + q * k * 8 + q * 4, ops=0)
@@ -571,9 +567,6 @@ def kernel_cost_of_call(op: str, args, kwargs) -> dict:
     if op == "euclid_min":
         data = args[1]
         return kernel_cost("euclid_min", b=data.shape[0], n=data.shape[1])
-    if op == "smallest":
-        lb, k = args[0], args[1]
-        return kernel_cost("smallest", q=lb.shape[0], n=lb.shape[1], k=k)
     if op == "select":
         lb, k = args[0], args[1]
         return kernel_cost("select", q=lb.shape[0], n=lb.shape[1], k=k)

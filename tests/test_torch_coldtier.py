@@ -27,7 +27,7 @@ from repro.core import MutableIndex as JMutable
 from repro.core import build_index as j_build_index
 from repro.core import coldtier as jcold
 from repro_torch import convert
-from repro_torch.core import coldtier, durable
+from repro_torch.core import coldtier, durable, search
 from repro_torch.core.block_cache import BlockCache, ColdReader
 from repro_torch.core.build_pipeline import keys_to_u64, refine_key
 from repro_torch.core.durable import FaultError, fail_at
@@ -177,6 +177,45 @@ def test_cold_tiers_1nn_and_engine_match_memory(tmp_path):
     first = shard.reader.cache.stats()["bytes_read"]
     coldtier.cold_exact_knn_batch(shard, QUERIES, k=2, round_size=ROUND)
     assert shard.reader.cache.stats()["bytes_read"] == first
+
+
+@pytest.mark.parametrize("store", ["index", "packed", "cold", "live"])
+def test_every_store_checks_queries_and_k_alike(tmp_path, store):
+    """Each store's k-NN entry goes through the engine's one front door:
+    k < 1 and malformed queries raise, and a k past the store's size is
+    answered with every series and (INF, NO_POS) in the slots past it."""
+    _, t = index_pair()
+    n = t.num_series
+    if store == "index":
+        def call(qs, k):
+            return exact_knn_batch(t, qs, k=k, round_size=ROUND)
+    elif store == "packed":
+        packed = search.pack_components([(t, 0)])
+
+        def call(qs, k):
+            return search.exact_knn_batch_packed(packed, qs, k=k,
+                                                 round_size=ROUND)
+    elif store == "cold":
+        shard = _spill_port(str(tmp_path), t)
+
+        def call(qs, k):
+            return coldtier.cold_exact_knn_batch(shard, qs, k=k,
+                                                 round_size=ROUND)
+    else:
+        live = MutableIndex(t, device="cpu")
+
+        def call(qs, k):
+            return live.exact_knn_batch(qs, k=k, fused=True,
+                                        round_size=ROUND)
+    with pytest.raises(ValueError, match="k must be"):
+        call(QUERIES, 0)
+    with pytest.raises(ValueError, match="queries must be"):
+        call(QUERIES[:, :LENGTH - 1], 1)
+    d, p = call(QUERIES, n + 3)
+    assert torch.isinf(d[:, n:]).all() and (p[:, n:] == search.NO_POS).all()
+    assert torch.isfinite(d[:, :n]).all()
+    for row in p[:, :n]:
+        assert sorted(row.tolist()) == list(range(n))
 
 
 @pytest.mark.parametrize("budget", [0, None])

@@ -20,6 +20,7 @@ import torch
 from repro_torch.core import isax as tx
 from repro_torch.core.datagen import random_walk
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
 
 
 def _t(a):
@@ -1050,16 +1051,24 @@ def _selection_cases():
     return selection_cases()
 
 
+def _smallest(lb, k):
+    """The k smallest of each row, ascending, by the kernels: ``select``,
+    then ``order_range`` over the whole list."""
+    cols, bounds, _ = tops.select(lb, k)
+    return tops.order_range(bounds, cols, 0, k)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(_selection_cases()))
 def test_cuda_smallest_bitwise(cuda_device, name):
     lb, k = _selection_cases()[name]
     lb = torch.from_numpy(lb).to(cuda_device)
     tops.reset_launch_counts()
-    cols, bounds = tops.smallest(lb, k)
+    cols, bounds = _smallest(lb, k)
     torch.cuda.synchronize()
-    assert tops.launch_counts()["smallest"] == 1
-    want_cols, want_bounds = tops.smallest(lb, k, impl="ref")
+    counts = tops.launch_counts()
+    assert counts["select"] == counts["order_range"] == 1
+    want_cols, want_bounds = tref.smallest(lb, k)
     assert torch.equal(cols, want_cols)
     assert torch.equal(bounds.view(torch.int32), want_bounds.view(torch.int32))
 
@@ -1080,8 +1089,8 @@ def test_cuda_smallest_on_random_walk_bounds(cuda_device):
     bpp = tx.padded_breakpoints(index.cardinality, cuda_device)
     lb = tops.lower_bound_sq_batch(tx.paa(qs, index.segments), index.sax,
                                    bpp, index.series_length)
-    cols, bounds = tops.smallest(lb, 1 << 16)
-    want_cols, want_bounds = tops.smallest(lb, 1 << 16, impl="ref")
+    cols, bounds = _smallest(lb, 1 << 16)
+    want_cols, want_bounds = tref.smallest(lb, 1 << 16)
     torch.cuda.synchronize()
     assert torch.equal(cols, want_cols)
     assert torch.equal(bounds, want_bounds)
@@ -1089,8 +1098,8 @@ def test_cuda_smallest_on_random_walk_bounds(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_one_smallest_launch_set_per_batch_call(cuda_device):
-    """The engine selects once a call (``select``), orders its first prefix
-    and each extension (``order_range``), and never runs the whole sort."""
+    """The engine selects once a call (``select``) and orders its first
+    prefix and each extension (``order_range``)."""
     from repro_torch.core import build_index
     from repro_torch.core.search import exact_knn_batch
 
@@ -1102,7 +1111,7 @@ def test_cuda_one_smallest_launch_set_per_batch_call(cuda_device):
             exact_knn_batch(index, queries, k=4, round_size=64)
         torch.cuda.synchronize()
         counts = tops.launch_counts()
-        assert counts["select"] == calls and counts["smallest"] == 0
+        assert counts["select"] == calls
         assert counts["order_range"] >= calls
 
 
@@ -1139,7 +1148,7 @@ def test_cuda_select_and_order_range_bitwise(cuda_device, name):
 @pytest.mark.parametrize("kind", ["levels", "exponential"])
 def test_cuda_candidate_list_at_the_main_path_shape(cuda_device, kind):
     """The engine's candidate list at (64, 2^24) bounds, 2^20 selected,
-    rounds of 4096: round by round it reads ``ops.smallest``'s list bit for
+    rounds of 4096: round by round it reads ``ref.smallest``'s list bit for
     bit, over its first prefix (2^15 entries, a 32nd of the list) and its
     first two extensions (to 2^17 and 2^19 entries). ``levels``: 4096
     values, so every cut falls among ties."""
@@ -1154,7 +1163,7 @@ def test_cuda_candidate_list_at_the_main_path_shape(cuda_device, kind):
         lb = torch.empty(shape, device=cuda_device).exponential_(
             generator=gen)
     sel, rs = 1 << 20, 4096
-    want_cols, want_bounds = tops.smallest(lb, sel)
+    want_cols, want_bounds = tref.smallest(lb, sel)
     cands = CandidateList(lb, sel, rs, "auto")
     del lb
     assert torch.equal(cands.last, want_bounds[:, -1])
@@ -1208,8 +1217,6 @@ def _op_cases(dev):
                              keu.launches),
         "euclid_min": ((q[0].contiguous(), z), keu.euclid_min_cuda,
                        keu.min_launches),
-        "smallest": ((z[:9].contiguous(), 100), ksel.smallest_cuda,
-                     ksel.launches),
         "select": ((z[:9].contiguous(), 100), ksel.select_cuda,
                    ksel.select_launches),
         "order_range": ((z[:9, :200].abs().contiguous(),
@@ -1224,7 +1231,7 @@ def _op_cases(dev):
 @pytest.mark.parametrize("name", ["paa_isax", "lower_bound_sq_batch",
                                   "lower_bound_sq", "lower_bound_sq_multi",
                                   "euclid_sq_gather", "euclid_min",
-                                  "smallest", "select", "order_range"])
+                                  "select", "order_range"])
 def test_cuda_operator_equals_wrapper_and_counts_once(cuda_device, name):
     args, wrapper, counter = _op_cases(cuda_device)[name]
     want = wrapper(*args)

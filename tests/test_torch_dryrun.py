@@ -194,7 +194,6 @@ def _inputs():
             q=Q, n_pad=N, w=W, n_bp=257, blocks=3)),
         "euclid_sq_gather": ((queries, series, pos), dict(q=Q, r=R, n=L)),
         "euclid_min": ((queries[0], series), dict(b=N, n=L)),
-        "smallest": ((series[:Q].abs(), 7), dict(q=Q, n=L, k=7)),
         "select": ((series[:Q].abs(), 7), dict(q=Q, n=L, k=7)),
         "order_range": ((series[:Q].abs(), torch.arange(
             L, dtype=torch.int32).expand(Q, -1).contiguous(), 0, 5),
@@ -217,7 +216,6 @@ def _plain(name, args):
           "euclid_sq_gather": lambda *a: ops.euclid_sq_gather(*a,
                                                               impl="ref"),
           "euclid_min": lambda *a: ops.euclid_min(*a, impl="ref"),
-          "smallest": lambda *a: ops.smallest(*a, impl="ref"),
           "select": lambda *a: ops.select(*a, impl="ref"),
           "order_range": lambda *a: ops.order_range(*a, impl="ref")}[name]
     return fn(*args)
@@ -226,7 +224,7 @@ def _plain(name, args):
 @pytest.mark.parametrize("name", ["paa_isax", "lower_bound_sq_batch",
                                   "lower_bound_sq", "lower_bound_sq_multi",
                                   "euclid_sq_gather", "euclid_min",
-                                  "smallest", "select", "order_range"])
+                                  "select", "order_range"])
 def test_op_fake_output_and_flops(name):
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.utils.flop_counter import FlopCounterMode

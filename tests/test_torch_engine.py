@@ -106,6 +106,6 @@ def test_engine_helpers_match_reference():
 
 def test_smallest_breaks_ties_toward_lower_column():
     lb = torch.tensor([[3.0, 1.0, 1.0, 0.0, 1.0, float("inf")]])
-    cols, bounds = ts._smallest(lb, 4)
+    cols, bounds = ts.CandidateList(lb, 4, 4, "auto").round(0)
     assert cols.tolist() == [[3, 1, 2, 4]]
     assert bounds.tolist() == [[0.0, 1.0, 1.0, 1.0]]

@@ -310,7 +310,7 @@ def test_dispatch_rules():
     with pytest.raises(ValueError, match="impl"):
         tops.paa_isax(z, bp, 16, impl="pallas")
     with pytest.raises(ValueError, match="impl"):
-        tops.smallest(z.abs(), 5, impl="pallas")
+        tops.select(z.abs(), 5, impl="pallas")
     with pytest.raises(ValueError, match="impl"):
         tops.lower_bound_sq(z[0, :16], torch.zeros((4, 16), dtype=torch.uint8),
                             tx.padded_breakpoints(), 64, impl="cuda")
@@ -321,13 +321,12 @@ def test_dispatch_rules():
     tops.euclid_min(z[0], z)
     tops.lower_bound_sq(z[0, :16], torch.zeros((4, 16), dtype=torch.uint8),
                         tx.padded_breakpoints(), 64)
-    tops.smallest(z.abs(), 5)
     cols, bounds, _ = tops.select(z.abs(), 5)
     tops.order_range(bounds, cols, 0, 3)
     assert tops.launch_counts() == {
         "paa_isax": 0, "lower_bound_sq_batch": 0, "lower_bound_sq": 0,
         "lower_bound_sq_multi": 0, "euclid_sq": 0, "euclid_min": 0,
-        "smallest": 0, "select": 0, "order_range": 0}
+        "select": 0, "order_range": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -352,8 +351,6 @@ def test_kernel_wrappers_refuse_cpu_tensors():
             tx.padded_breakpoints(), 64, torch.ones(1, dtype=torch.int32), 128)
     with pytest.raises(ValueError, match="CUDA"):
         euclidean.euclid_min_cuda(z[0].contiguous(), z)
-    with pytest.raises(ValueError, match="CUDA"):
-        select.smallest_cuda(z, 3)
     with pytest.raises(ValueError, match="CUDA"):
         select.select_cuda(z, 3)
     with pytest.raises(ValueError, match="CUDA"):

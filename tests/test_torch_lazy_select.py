@@ -117,7 +117,8 @@ def test_lazy_list_keeps_the_reference_tiers(mix):
 
 def test_lazy_list_reads_what_the_full_sort_reads(monkeypatch):
     """The engine with the lazy list against the same engine fed the whole
-    sorted list at once (``ops.smallest``): identical tensors."""
+    sorted list at once (one ``order_range`` over the whole list): identical
+    tensors."""
     _, t, _ = _pair()
     qs = torch.from_numpy(_queries("noise"))
 

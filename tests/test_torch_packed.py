@@ -180,11 +180,12 @@ def test_selection_keeps_pad_rows_last():
     # (lb bits << 32) | row orders every finite bound before them.
     _, _, _, pt, queries, _ = packed_pair()
     qs = torch.from_numpy(queries)
-    view = ts._packed_view_of(pt, pt.num_series)
+    view = ts._packed_view(pt)
     lb = view.lower_bounds(ts.isax.paa(ts.isax.znorm(qs), pt.segments), "auto")
     pads = pt.gpos == ts.NO_POS
     assert torch.isinf(lb[:, pads]).all() and torch.isfinite(lb[:, ~pads]).all()
-    cols, bounds = ts._smallest(lb, lb.shape[1])
+    cands = ts.CandidateList(lb, lb.shape[1], lb.shape[1], "auto")
+    cols, bounds = cands.round(0)
     n_real = int((~pads).sum())
     assert torch.isfinite(bounds[:, :n_real]).all()
     assert torch.isinf(bounds[:, n_real:]).all()

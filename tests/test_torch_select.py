@@ -1,16 +1,17 @@
-"""The candidate selection's plain version against numpy's stable argsort.
+"""The candidate selection's plain versions against numpy's stable argsort.
 
-``ops.smallest`` gives the k smallest bounds of each row, ascending, ties
-toward the lower column: the first k entries of a stable argsort of the
-row. The cases cover ties that straddle the k-th place, an all-equal row,
+``ops.select`` then ``ops.order_range`` over ranks [0, k) give the k
+smallest bounds of each row, ascending, ties toward the lower column: the
+first k entries of a stable argsort of the row, as the oracle
+``ref.smallest`` (an int64-key ``torch.topk``) gives them. The cases cover ties that straddle the k-th place, an all-equal row,
 +0.0 bounds, +inf padding rows, k = 1, k = L, L not a multiple of 32, rows
 longer than one chunk of the card's kernels (65536 bounds), and Q in
-{1, 3, 64}. ``tests/test_torch_cuda.py`` holds the kernel to the plain
-version on the same cases. This file imports no JAX.
+{1, 3, 64}. ``tests/test_torch_cuda.py`` holds the kernels to the plain
+versions on the same cases. This file imports no JAX.
 
 The engine's lazy candidate list (``search.CandidateList``: ``ops.select``
 then ``ops.order_range`` one prefix at a time) must read, round by round,
-exactly what ``ops.smallest``'s sorted list holds: every extent its
+exactly what ``ref.smallest``'s sorted list holds: every extent its
 schedule produces, ties broken by column, a list length that is not a
 multiple of the round size, and the full sort (``sel_len == L``).
 """
@@ -20,7 +21,7 @@ import pytest
 import torch
 
 from repro_torch.core import search
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 INF = np.float32(np.inf)
 
@@ -65,27 +66,35 @@ def stable_prefix(lb: np.ndarray, k: int) -> tuple:
     return cols.astype(np.int32), np.take_along_axis(lb, cols, axis=1)
 
 
+def smallest(lb: torch.Tensor, k: int) -> tuple:
+    """The k smallest of each row, ascending: ``ops.select``, then
+    ``ops.order_range`` over the whole list."""
+    cols, bounds, _ = ops.select(lb, k)
+    return ops.order_range(bounds, cols, 0, k)
+
+
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_smallest_equals_stable_argsort_prefix(name):
     lb, k = CASES[name]
     want_cols, want_bounds = stable_prefix(lb, k)
     ops.reset_launch_counts()
-    cols, bounds = ops.smallest(torch.from_numpy(lb), k)
+    cols, bounds = smallest(torch.from_numpy(lb), k)
     assert cols.dtype == torch.int32 and bounds.dtype == torch.float32
     assert cols.shape == bounds.shape == (lb.shape[0], k)
     np.testing.assert_array_equal(cols.numpy(), want_cols)
     assert np.array_equal(bounds.numpy().view(np.int32),
                           want_bounds.view(np.int32))
-    assert ops.launch_counts()["smallest"] == 0  # a CPU tensor: no kernel
+    counts = ops.launch_counts()  # a CPU tensor: no kernel
+    assert counts["select"] == counts["order_range"] == 0
 
 
 def test_smallest_tie_rule_gives_the_fallback_its_bound():
     """The engine's exactness fallback reads the last selected bound
-    (``lb_sel[:, -1]``): it is the k-th smallest, whichever tie is cut."""
+    (``ops.select``'s k-th bound): it is the k-th smallest, whichever tie
+    is cut."""
     lb, k = CASES["ties_straddle_k"]
-    _, bounds = ops.smallest(torch.from_numpy(lb), k)
-    np.testing.assert_array_equal(bounds[:, -1].numpy(),
-                                  np.sort(lb, axis=1)[:, k - 1])
+    _, _, kth = ops.select(torch.from_numpy(lb), k)
+    np.testing.assert_array_equal(kth.numpy(), np.sort(lb, axis=1)[:, k - 1])
 
 
 def list_cases() -> dict:
@@ -121,7 +130,7 @@ def extents(sel_len: int, rs: int) -> list:
 def test_candidate_list_reads_the_sorted_prefix(name):
     lb, sel_len, rs = list_cases()[name]
     lb = torch.from_numpy(lb)
-    want_cols, want_bounds = ops.smallest(lb, sel_len)
+    want_cols, want_bounds = ref.smallest(lb, sel_len)
     cands = search.CandidateList(lb, sel_len, rs, "auto")
     assert torch.equal(cands.last.view(torch.int32),
                        want_bounds[:, -1].view(torch.int32))
@@ -173,11 +182,11 @@ def test_first_prefix_is_whole_rounds_and_a_share_of_the_list(sel_len, rs,
 def test_select_and_order_range_give_smallest(name):
     """``ops.select``'s column-order entries and last bound, and
     ``ops.order_range`` over them in three pieces, rebuild
-    ``ops.smallest`` bit for bit (the plain versions here; the card's
+    ``ref.smallest`` bit for bit (the plain versions here; the card's
     kernels in ``test_torch_cuda.py``)."""
     lb, k = CASES[name]
     lb = torch.from_numpy(lb)
-    want_cols, want_bounds = ops.smallest(lb, k)
+    want_cols, want_bounds = ref.smallest(lb, k)
     cols, bounds, kth = ops.select(lb, k)
     assert torch.equal(cols, torch.sort(want_cols, dim=1).values)
     assert torch.equal(bounds.view(torch.int32),
