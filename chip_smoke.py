@@ -273,15 +273,19 @@ KERNEL_ROWS = {  # name -> (source, TPU kernel it replaces)
                "src/repro/core/search.py:592)"),
     "order_range": ("src/repro_torch/kernels/csrc/select.cu",
                     "none (phase 2 of the reference's jax.lax.top_k)"),
+    "engine_round": ("src/repro_torch/kernels/csrc/euclidean.cu",
+                     "none (the reference's round body, XLA ops in its "
+                     "while_loop, src/repro/core/search.py:655)"),
 }
 # The kernels each driven path must launch.
 PATH_KERNELS = {
     "full": ("paa_isax", "lower_bound_sq_batch", "euclid_sq", "select",
-             "order_range"),
+             "order_range", "engine_round"),
     "baselines": ("lower_bound_sq", "euclid_sq", "euclid_min"),
     "classify": ("lower_bound_sq_batch", "euclid_sq"),
     "serve": ("paa_isax", "lower_bound_sq_batch", "euclid_sq"),
-    "packed": ("paa_isax", "lower_bound_sq_multi", "euclid_sq"),
+    "packed": ("paa_isax", "lower_bound_sq_multi", "euclid_sq",
+               "engine_round"),
     "disk": ("paa_isax", "lower_bound_sq_batch", "lower_bound_sq_multi",
              "euclid_sq"),
     "mesh": ("paa_isax", "lower_bound_sq_batch", "lower_bound_sq",
@@ -958,6 +962,7 @@ def phase_kernels(full: dict) -> list:
     # the first extension, [2^15, 2^17) at the full size
     ext = (min(first, sel // 2), min(PREFIX_GROWTH * first, sel))
     cut = (sel_k[:, ext[0] - 1], order[:, ext[0] - 1])  # rank lo - 1
+    sel_k_all = sel_k  # the rounds' bounds, for the engine_round row
     part_x = ops.order_range(bounds_s, cols_s, *ext, *cut)
     same = (torch.equal(part[0], plain[0])
             and torch.equal(part[1].view(torch.int32),
@@ -982,7 +987,6 @@ def phase_kernels(full: dict) -> list:
     # euclid_sq: the first RDC round's (Q, 4096) candidates of every query.
     del lb_k
     pos = index.pos[order[:, :rs].long()].contiguous()
-    del order
     d_k = ops.euclid_sq_gather(qz, index.raw, pos)
     d_p = ops.euclid_sq_gather(qz, index.raw, pos, impl="ref")
     err = (d_k - d_p).abs().max().item()
@@ -998,6 +1002,10 @@ def phase_kernels(full: dict) -> list:
         kernel_cost("euclid_sq", q=n_q, r=rs, n=n, rows_read=uniq),
         launch_shape("euclid_sq", n_q, rs, dev))
     del pos, d_k, d_p
+    rows.append(engine_round_row(index, qz, order, sel_k_all, full))
+    del sel_k_all
+
+    del order
 
     # lower_bound_sq: one query against all N rows, as the baselines call
     # it, in both of the reference's layouts (the same kernel here).
@@ -1036,6 +1044,123 @@ def phase_kernels(full: dict) -> list:
         kernel_cost("euclid_min", b=n_series, n=n),
         launch_shape("euclid_min", 1, n_series, dev))
     return rows
+
+
+def engine_round_row(index, qz, order, bounds, full) -> dict:
+    """The engine's round at the main path's shape (Q = 64, rounds of 4096
+    columns of the selected list, (Q, 4096) views of it with its row stride)
+    through ``engine_round``, bit for bit against its plain version given
+    the gather kernel's distances: result lists, reads, updates, skip_lb,
+    the state words with the exit flag, and the k > 1 distances and
+    positions. Round 0 from the bucket seed's k-th bests at k = 1 and 4
+    (nearly every candidate masked in); round 1 from the seed at k = 8 with
+    the tiers as ``tier_arrays`` makes them (exact, epsilon 0.1, and
+    budgets that end at and after the round); and a later round from the
+    exact answer's k-th bests at k = 1 and 8, plain and tiered, the round by
+    which three quarters of the queries are done, so few candidates are
+    masked in, as late in a hard batch. Then timed: each launch alone by
+    CUDA events on fresh result lists at round 0 from the seed, the plain
+    version with its own distances."""
+    import torch
+
+    from repro_torch.core import Tier
+    from repro_torch.core.search import approx_search_batch, tier_arrays
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.roofline import kernel_cost
+
+    dev = index.device
+    n_q = qz.shape[0]
+    rs = 4096
+    n = index.raw.shape[1]
+    bsf, bpos = approx_search_batch(index, qz, 256)
+    store = (index.pos, index.raw)
+    hooks = (ref.row_hooks(index.pos, index.raw)[0],
+             lambda q, pos, mask: ops.euclid_sq_gather(q, index.raw, pos))
+    kx = min(8, full["d"].shape[1])
+    # the round by which three quarters of the queries have no bound left
+    # below their exact k-th best
+    below = (bounds < full["d"][:, kx - 1:kx]).sum(dim=1)
+    late = int(torch.quantile(below.double(), 0.75).item()) // rs
+    late = min(late, bounds.shape[1] // rs - 1)
+
+    def fresh(k, start):
+        if start == "exact":
+            top_d = full["d"][:, :k].clone()
+            top_p = full["p"][:, :k].to(torch.int32).clone()
+        else:
+            top_d = torch.full((n_q, k), float("inf"), device=dev)
+            top_p = torch.full((n_q, k), -1, dtype=torch.int32, device=dev)
+            top_d[:, 0], top_p[:, 0] = bsf, bpos  # the engine's seed slot
+        return [top_d, top_p, torch.zeros(n_q, dtype=torch.int32, device=dev),
+                torch.zeros(n_q, dtype=torch.int32, device=dev),
+                torch.zeros(3 * n_q + 2, dtype=torch.int64, device=dev)]
+
+    def tiers(r, tiered):
+        if not tiered:
+            return [None, None, None]
+        kinds = [Tier.exact(), Tier.epsilon(0.1), Tier.budget(r + 1),
+                 Tier.budget(max(r, 1))]  # a budget is one round or more
+        eps, budget = tier_arrays([kinds[i % 4] for i in range(n_q)], dev)
+        return [eps, budget, torch.full((n_q,), float("inf"), device=dev)]
+
+    def outs(k):
+        return ((torch.empty((n_q, rs), device=dev),
+                 torch.empty((n_q, rs), dtype=torch.int32, device=dev))
+                if k > 1 else (None, None))
+
+    def window(r):
+        return order[:, r * rs:(r + 1) * rs], bounds[:, r * rs:(r + 1) * rs]
+
+    def bits(t):
+        return t.view(torch.int32) if t.is_floating_point() else t
+
+    same, read = True, []
+    for start, k, r, tiered in (("seed", 1, 0, False), ("seed", 4, 0, False),
+                                ("seed", kx, 1, True),
+                                ("exact", 1, late, False),
+                                ("exact", kx, late, False),
+                                ("exact", kx, late, True)):
+        got, want = fresh(k, start), fresh(k, start)
+        t_k, t_p = tiers(r, tiered), tiers(r, tiered)
+        o_k, o_p = outs(k), outs(k)
+        ops.engine_round(*window(r), r, rs, store, qz, *got, tiers=t_k,
+                         out=o_k)
+        ref.engine_round(*window(r), r, rs, *hooks, qz, *want, *t_p, *o_p)
+        pairs = [(a, b) for a, b in zip(got + t_k + list(o_k),
+                                        want + t_p + list(o_p))
+                 if a is not None]
+        ok = all(torch.equal(bits(a), bits(b)) for a, b in pairs)
+        same &= ok
+        n_read = int(got[2].sum())
+        read.append(n_read)
+        log(f"[kernel] engine_round: {start} k = {k} round {r}"
+            f"{' tiered' if tiered else ''}: bitwise equal {ok}, flag "
+            f"{int(got[4][-1])}, {n_read} of {n_q * rs} candidates read")
+    expect(same, "engine_round not bitwise equal to its plain version")
+    expect(0 < read[3] < n_q * rs // 2,
+           f"engine_round: the late round read {read[3]} candidates, not a "
+           f"sparse mask")
+    cols0, bounds0 = window(0)
+    base = fresh(1, "seed")
+    work = fresh(1, "seed")
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(50)]
+    for ev0, ev1 in events:
+        for a, b in zip(work, base):
+            a.copy_(b)
+        ev0.record()
+        ops.engine_round(cols0, bounds0, 0, rs, store, qz, *work)
+        ev1.record()
+    torch.cuda.synchronize()
+    ms = sum(a.elapsed_time(b) for a, b in events[1:]) / (len(events) - 1)
+
+    def plain():
+        ops.engine_round(cols0, bounds0, 0, rs, store, qz, *fresh(1, "seed"),
+                         impl="ref")
+    return kernel_row("engine_round", 0.0, ms, time_ms(plain, 3),
+                      kernel_cost("engine_round", q=n_q, r=rs, n=n,
+                                  rows_read=read[0]),
+                      {"threads": 256, "rows_per_warp": 4})
 
 
 # The tuning phase's moderate shapes (Q, N) for the bitwise checks of every

@@ -10,9 +10,11 @@ algorithms work on *squared* distances and return file-order positions.
   candidate list         -> the ``select_len`` smallest bounds per query,
                             ties toward the lower row (as ``lax.top_k``).
   RDC rounds + BSF       -> :func:`_engine_core`: rounds of ``round_size``
-                            candidates per query, one fused gather-and-
-                            distance kernel launch each, masked by the
-                            current k-th best, merged into the result list.
+                            candidates per query, masked by the current
+                            k-th best, distanced and merged into the result
+                            list; over stores whose rows lie on the device
+                            a round is one launch (:func:`ops.engine_round`)
+                            with its exit test.
   early exit, fallback   -> the loop stops when no query's next bound beats
                             its k-th best; the exactness fallback scans the
                             rows the selection cut off, only when needed.
@@ -46,6 +48,7 @@ from repro_torch.core import isax, trace, tuning
 from repro_torch.core.device import as_f32, resolve_device
 from repro_torch.core.index import ParISIndex
 from repro_torch.kernels import ops
+from repro_torch.kernels import ref as kref
 
 INF = float("inf")
 NO_POS = -1  # sentinel position of an unfilled k-NN result slot
@@ -292,19 +295,26 @@ class CandidateList:
 
     def head(self, r: int) -> torch.Tensor:
         """(Q,) bound of round r's first entry (r * round_size < sel_len)."""
-        i = r * self.round_size
+        return self.window(r)[1][:, 0]
+
+    def window(self, r: int) -> tuple:
+        """Round r's ((Q, W) columns, (Q, W) bounds), W <= round_size (short
+        at the list's end): views of the part that holds them, no copy.
+        It orders what :meth:`head` orders: every prefix ends on a whole
+        round or the list's end, so the part holding round r's first entry
+        holds the round."""
+        rs = self.round_size
+        i = r * rs
         self._reach(i + 1)
-        lo, _, bounds = self._part(i)
-        return bounds[:, i - lo]
+        lo, cols, bounds = self._part(i)
+        return cols[:, i - lo:i - lo + rs], bounds[:, i - lo:i - lo + rs]
 
     def round(self, r: int) -> tuple:
         """Round r's ((Q, rs) columns, (Q, rs) bounds), padded past the
         list's end with column 0 and +inf."""
+        cols, bounds = self.window(r)
         rs = self.round_size
-        self._reach((r + 1) * rs)
-        lo, cols, bounds = self._part(r * rs)
-        return (_cols(cols, r * rs - lo, rs, 0),
-                _cols(bounds, r * rs - lo, rs, INF))
+        return _cols(cols, 0, rs, 0), _cols(bounds, 0, rs, INF)
 
 
 def dedup_mask(cand_pos: torch.Tensor, top_d: torch.Tensor,
@@ -318,6 +328,29 @@ def dedup_mask(cand_pos: torch.Tensor, top_d: torch.Tensor,
         (cand_pos[:, :, None] == top_p[:, None, :])
         & (top_d[:, None, :] < INF)
     ).any(dim=2)
+
+
+def merge_round(top_d: torch.Tensor, top_p: torch.Tensor,
+                cand_pos: torch.Tensor, d: torch.Tensor) -> tuple:
+    """The (Q, k) result lists merged with a round's (Q, R) candidates,
+    whose distances are +inf outside the round's mask.
+
+    k = 1: argmin and strict improvement (ties keep the incumbent). k > 1:
+    a candidate already in the list is dropped (:func:`dedup_mask`), then a
+    stable sort, so ties keep the lower column and the incumbent wins.
+    """
+    k = top_d.shape[1]
+    if k == 1:
+        j = torch.argmin(d, dim=1, keepdim=True)
+        dj = d.gather(1, j)
+        better = dj < top_d
+        return (torch.where(better, dj, top_d),
+                torch.where(better, cand_pos.gather(1, j), top_p))
+    d = torch.where(dedup_mask(cand_pos, top_d, top_p), INF, d)
+    md = torch.cat([top_d, d], dim=1)
+    mp = torch.cat([top_p, cand_pos], dim=1)
+    vals, sel = torch.sort(md, dim=1, stable=True)
+    return vals[:, :k], mp.gather(1, sel[:, :k])
 
 
 def merge_top_lists(dists: list, positions: list, k: int) -> tuple:
@@ -364,6 +397,12 @@ class EngineView:
       seed          ((Q, n) queries, impl) -> ((Q,) bsf, (Q,) pos, leaf
                     reads): the approximate-search BSF seed, or None for a
                     cold start at (+inf, ``NO_POS``)
+      rows          ((n_rows,) int32 position table, (N, n) raw rows), both
+                    on the device, where ``positions`` is a lookup in that
+                    table and ``distances`` reads those rows: then each
+                    round of the sorted main loop is one
+                    :func:`ops.engine_round` (the cold tier, whose rows come
+                    from the host, gives None and runs the plain round)
     """
 
     n_rows: int
@@ -373,6 +412,7 @@ class EngineView:
     positions: Callable
     distances: Callable
     seed: Optional[Callable] = None
+    rows: Optional[tuple] = None
 
 
 def _index_view(index: ParISIndex, *, leaf_cap: int) -> EngineView:
@@ -399,6 +439,7 @@ def _index_view(index: ParISIndex, *, leaf_cap: int) -> EngineView:
         distances=lambda qs, pos, impl, mask: ops.euclid_sq_gather(
             qs, index.raw, pos, impl=impl),
         seed=seed,
+        rows=(index.pos, index.raw),
     )
 
 
@@ -453,6 +494,14 @@ def _engine_core(
     already in the result list (:func:`dedup_mask`). ``sort=False`` is the
     ADS+-style serial scan (row order, no early exit).
 
+    Every round is one round step: its exit test, mask, distances, counters
+    and (k = 1) merge, after which the host reads its exit flag back; k > 1
+    merges its masked distances here. Where the view gives its device
+    ``rows``, a main-loop round is one :func:`ops.engine_round`; otherwise,
+    and in the fallback, the plain round (``kernels.ref.engine_round``)
+    runs over the view's ``positions`` and ``distances``. Rounds, reads,
+    updates and answers are the same either way.
+
     Passing ``eps_factor_sq`` and ``budget_rounds`` ((Q,) tensors,
     :func:`tier_arrays`) runs the TIERED variant, which returns a sixth
     output, the per-query achieved squared error factor; tiers require
@@ -504,76 +553,59 @@ def _engine_core(
             sel_len = n_rows
         n_rounds = -(-sel_len // rs)
 
-        def merge(top_d, top_p, cand_pos, d):
-            # 1-NN: argmin + strict improvement (ties keep incumbent)
-            if k == 1:
-                j = torch.argmin(d, dim=1, keepdim=True)
-                dj = d.gather(1, j)
-                better = dj < top_d
-                return (torch.where(better, dj, top_d),
-                        torch.where(better, cand_pos.gather(1, j), top_p))
-            # k-safety: a re-distanced candidate must not enter the list
-            # twice.
-            d = torch.where(dedup_mask(cand_pos, top_d, top_p), INF, d)
-            md = torch.cat([top_d, d], dim=1)
-            mp = torch.cat([top_p, cand_pos], dim=1)
-            # Stable sort: ties keep the lower column, so the incumbent wins.
-            vals, sel = torch.sort(md, dim=1, stable=True)
-            return vals[:, :k], mp.gather(1, sel[:, :k])
-
-        def tier_skip(skip_lb, would, mask, lbs):
-            # Candidates the exact engine would have checked but the tier
-            # skipped feed the achieved-bound tracker.
-            return torch.minimum(
-                skip_lb, torch.where(would & ~mask, lbs, INF).amin(dim=1))
-
-        def apply_round(top_d, top_p, reads, updates, cand_pos, d, mask):
-            d = torch.where(mask, d, INF)
-            improved = d.amin(dim=1) < top_d[:, -1]
-            top_d, top_p = merge(top_d, top_p, cand_pos, d)
-            return (top_d, top_p,
-                    reads + mask.sum(dim=1, dtype=torch.int32),
-                    updates + improved.to(torch.int32))
-
         def read_back(flag) -> bool:
             # The one host readback of a round: it waits for the device.
             with trace.span("paris.engine.sync"):
                 return bool(flag)
 
+        # Round hooks for the plain round (ref.engine_round): positions of
+        # each query's own columns (the candidate list), or of one row
+        # order shared by every query (the serial scan, the fallback).
+        per_query = (view.positions,
+                     lambda q, pos, mask: view.distances(q, pos, impl, mask))
+        shared = (lambda c: view.positions(c[0]).expand(n_q, -1),
+                  lambda q, pos, mask: view.distances(q, pos[0], impl, mask))
+        tiers = (eps_factor_sq, budget_rounds, skip_lb)
+        # the round kernel's words, then the exit flag
+        state = torch.zeros((3 * n_q + 2,), dtype=torch.int64, device=dev)
+
+        def step(cols, bounds, r, hooks, head=None, test=True) -> bool:
+            """One round: ops.engine_round over the view's device rows
+            (``hooks`` None), else the plain round over ``hooks``; then the
+            exit flag read back (``test``) and the k > 1 merge. False where
+            the round's exit test failed, and nothing changed."""
+            nonlocal top_d, top_p
+            out = ((torch.empty((n_q, rs), device=dev),
+                    torch.empty((n_q, rs), dtype=torch.int32, device=dev))
+                   if k > 1 else (None, None))
+            if hooks is None:
+                ops.engine_round(cols, bounds, r, rs, view.rows, qs, top_d,
+                                 top_p, reads, updates, state, tiers=tiers,
+                                 out=out, impl=impl)
+            else:
+                kref.engine_round(cols, bounds, r, rs, *hooks, qs, top_d,
+                                  top_p, reads, updates, state, *tiers, *out,
+                                  head=head)
+            if test and not read_back(state[-1]):
+                return False
+            if k > 1:
+                top_d, top_p = merge_round(top_d, top_p, out[1], out[0])
+            return True
+
+        def row_order(r):  # round r of the row order, as every query's
+            return _round_rows(n_rows, r, rs, dev)[None].expand(n_q, -1)
+
+        main = None if view.rows is not None else per_query
+        no_test = torch.full((n_q,), -INF, device=dev)  # passes every test
         r = 0
         while r < n_rounds:
             with trace.span("paris.engine.round"):
-                kth = top_d[:, -1]
                 if sort:  # joint early exit: every next bound >= its BSF
-                    head = cands.head(r)
-                    if tiered:
-                        go = ((r < budget_rounds)
-                              & (head * eps_factor_sq < kth)).any()
-                    else:
-                        go = (head < kth).any()
-                    if not read_back(go):
+                    if not step(*cands.window(r), r, main):
                         break
-                if sort:
-                    cand_rows, lbs = cands.round(r)
-                else:
-                    lbs = _round_cols(lb, r, rs, INF)
-                if tiered:
-                    would = lbs < kth[:, None]
-                    mask = ((lbs * eps_factor_sq[:, None] < kth[:, None])
-                            & (r < budget_rounds)[:, None])
-                    skip_lb = tier_skip(skip_lb, would, mask, lbs)
-                else:
-                    mask = lbs < kth[:, None]
-                if sort:
-                    cand_pos = view.positions(cand_rows)  # (Q, rs)
-                    # the "disk reads"
-                    d = view.distances(qs, cand_pos, impl, mask)
-                else:
-                    pos1 = view.positions(_round_rows(n_rows, r, rs, dev))
-                    d = view.distances(qs, pos1, impl, mask)
-                    cand_pos = pos1[None, :].expand(n_q, rs)
-                top_d, top_p, reads, updates = apply_round(
-                    top_d, top_p, reads, updates, cand_pos, d, mask)
+                else:  # the serial scan: every round, no exit test
+                    step(row_order(r), _round_cols(lb, r, rs, INF), r,
+                         shared, head=no_test, test=False)
                 r += 1
         r_main = r
 
@@ -581,41 +613,27 @@ def _engine_core(
         if sort and select == "topk" and sel_len < n_rows:
             # Exactness fallback: a query whose last *selected* bound still
             # beats its BSF might have unselected qualifying candidates —
-            # scan the full row order with per-query (bound, need) masks,
-            # re-evaluated every round. In the common case no query needs
-            # it and the loop stops before its first round.
+            # scan the full row order, with that bound as each query's
+            # head, re-evaluated every round. In the common case no query
+            # needs it and the loop stops before its first round.
             kth_bound = cands.last
             all_rounds = -(-n_rows // rs)
             r2 = 0
             while r2 < all_rounds:
                 with trace.span("paris.engine.fallback_round"):
-                    kth = top_d[:, -1]
-                    if tiered:
-                        need = ((kth_bound * eps_factor_sq < kth)
-                                & ((r_main + r2) < budget_rounds))
-                    else:
-                        need = kth_bound < kth
-                    if not read_back(need.any()):
+                    # The test comes first: in the common case it fails
+                    # at once, and the round's work is not launched.
+                    if not read_back(kref.exit_test(
+                            kth_bound, top_d[:, -1], r_main + r2,
+                            eps_factor_sq, budget_rounds)):
                         break
+                    # A bound below the K-th skips a candidate the main loop
+                    # already had (everything strictly below it was
+                    # selected); ties at the bound re-distance harmlessly.
                     lbs = _round_cols(lb, r2, rs, INF)
-                    pos1 = view.positions(_round_rows(n_rows, r2, rs, dev))
-                    # lbs >= kth_bound skips candidates the main loop
-                    # already had (everything strictly below the K-th
-                    # bound was selected); ties at the bound re-distance
-                    # harmlessly.
-                    if tiered:
-                        gate = lbs * eps_factor_sq[:, None] < kth[:, None]
-                    else:
-                        gate = lbs < kth[:, None]
-                    mask = gate & (lbs >= kth_bound[:, None]) & need[:, None]
-                    d = view.distances(qs, pos1, impl, mask)
-                    if tiered:
-                        would = ((lbs < kth[:, None])
-                                 & (lbs >= kth_bound[:, None]))
-                        skip_lb = tier_skip(skip_lb, would, mask, lbs)
-                    top_d, top_p, reads, updates = apply_round(
-                        top_d, top_p, reads, updates,
-                        pos1[None, :].expand(n_q, rs), d, mask)
+                    lbs = torch.where(lbs >= kth_bound[:, None], lbs, INF)
+                    step(row_order(r2), lbs, r_main + r2, shared,
+                         head=kth_bound, test=False)
                     r2 += 1
             fb_r2 = r2
             r = r + r2
@@ -879,6 +897,7 @@ def _packed_view(packed: PackedComponents) -> EngineView:
         distances=lambda qs, pos, impl, mask: ops.euclid_sq_gather(
             qs, packed.raw, pos, impl=impl),
         seed=None,
+        rows=(packed.gpos, packed.raw),
     )
 
 

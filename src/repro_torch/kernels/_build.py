@@ -75,6 +75,13 @@ _SIGNATURES = {
                                 _I, _VP),
     # query, data, best key, B, n, stream
     "euclid_min_launch": (_VP, _VP, _VP, _L, _I, _VP),
+    # cols, bounds, list row stride, width, round size, round, position
+    # table, raw, N, n, queries, top_d, its row stride, top_p, its row
+    # stride, k, reads, updates, eps, budget, skip_lb, out_d, out_p, state,
+    # Q, stream
+    "engine_round_launch": (_VP, _VP, _L, _I, _I, _I, _VP, _VP, _L, _I, _VP,
+                            _VP, _L, _VP, _L, _I, _VP, _VP, _VP, _VP, _VP,
+                            _VP, _VP, _VP, _I, _VP),
     # lb, cols, bounds, kth, scratch, scratch words, Q, L, k, stream
     "select_launch": (_VP, _VP, _VP, _VP, _VP, _L, _I, _L, _L, _VP),
     # list bounds, list cols, cut bounds, cut cols, out cols, out bounds,

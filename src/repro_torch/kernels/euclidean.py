@@ -26,6 +26,17 @@ query's distances to every row, with the first row winning ties, and the
 rows to one 64-bit key, (distance bits << 32) | row, and meet in one
 ``atomicMin``; distances are non-negative, so the key orders as
 (distance, row). Bound: memory, the B x n rows read once.
+
+:func:`engine_round_cuda` is one round of the batch engine's main loop
+(``core/search.py``, ``_engine_core``) as one launch of the round form of
+the gather kernel, in place of about twenty PyTorch launches: the exit
+test, the mask, the position lookup, the distances of the masked-in rows
+only (through the gather form's per-row warp sum, so each distance has its
+bits), the k = 1 merge (the smallest (distance bits << 32) | column key, as
+``euclid_min`` orders its rows) and the ``reads`` and ``updates`` counters.
+Its plain version is ``ref.engine_round``; the source's note gives the
+design. Bound: memory, the masked-in rows plus the round's columns and
+bounds.
 """
 
 from __future__ import annotations
@@ -38,6 +49,7 @@ from repro_torch.kernels import _build
 # Kernel launches since the caller last set them to 0, one count per entry.
 launches = _build.LaunchCounter()  # euclid_sq (the gather form)
 min_launches = _build.LaunchCounter()  # euclid_min
+round_launches = _build.LaunchCounter()  # engine_round
 
 MAX_QUERIES = 65535  # one grid row per query
 
@@ -106,3 +118,93 @@ def euclid_min_cuda(query: torch.Tensor, data: torch.Tensor) -> tuple:
     key = best[0]
     dist = (key >> 32).to(torch.int32).view(torch.float32)
     return dist, (key & 0xFFFFFFFF).to(torch.int32)
+
+
+def _require_view(t: torch.Tensor, name: str, dtype) -> None:
+    """A (Q, W) CUDA tensor of ``dtype`` whose rows are contiguous."""
+    if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor")
+    if t.dtype != dtype or t.dim() != 2 or t.stride(1) != 1:
+        raise ValueError(f"{name}: expected a 2-d {dtype} tensor with "
+                         f"contiguous rows, got {t.dtype} {tuple(t.shape)} "
+                         f"strides {t.stride()}")
+
+
+def engine_round_cuda(cols: torch.Tensor, bounds: torch.Tensor, r: int,
+                      round_size: int, pos_table: torch.Tensor,
+                      raw: torch.Tensor, queries: torch.Tensor,
+                      top_d: torch.Tensor, top_p: torch.Tensor,
+                      reads: torch.Tensor, updates: torch.Tensor,
+                      state: torch.Tensor, eps_factor_sq=None,
+                      budget_rounds=None, skip_lb=None, out_d=None,
+                      out_p=None) -> None:
+    """Launch round ``r`` of the engine's loop; see ``ops.engine_round``.
+
+    ``cols``/``bounds`` are round r's (Q, W) views of the candidate list
+    (W <= ``round_size``, rows contiguous, one row stride); the result
+    lists and counters are updated in place and ``state[-1]`` gets the
+    exit flag.
+    """
+    _require_view(cols, "cols", torch.int32)
+    _require_view(bounds, "bounds", torch.float32)
+    _build.require(pos_table, "pos_table", torch.int32, 1)
+    _build.require(raw, "raw", torch.float32, 2)
+    _build.require(queries, "queries", torch.float32, 2)
+    _require_view(top_d, "top_d", torch.float32)
+    _require_view(top_p, "top_p", torch.int32)
+    for t, name in ((reads, "reads"), (updates, "updates")):
+        _build.require(t, name, torch.int32, 1)
+    _build.require(state, "state", torch.int64, 1)
+    n_q, n = queries.shape
+    k = top_d.shape[1]
+    width = cols.shape[1]
+    tiers = (eps_factor_sq, budget_rounds, skip_lb)
+    if cols.shape != bounds.shape or cols.stride() != bounds.stride():
+        raise ValueError("cols and bounds must be views of one layout")
+    if cols.shape[0] != n_q or top_d.shape != top_p.shape or (
+            top_d.shape[0] != n_q) or reads.shape[0] != n_q or (
+            updates.shape[0] != n_q) or state.shape[0] != 3 * n_q + 2:
+        raise ValueError(f"every per-query tensor needs {n_q} rows and "
+                         f"state 3Q + 2 words")
+    if not 1 <= width <= round_size:
+        raise ValueError(f"a round of {width} columns for round_size "
+                         f"{round_size}")
+    if raw.shape[1] != n or raw.shape[0] == 0:
+        raise ValueError(f"queries have n={n}, raw is {tuple(raw.shape)}")
+    if n_q > MAX_QUERIES:
+        raise ValueError(f"at most {MAX_QUERIES} queries per launch")
+    if n * 4 > 48 * 1024:
+        raise ValueError(f"series length {n} exceeds the shared-memory stage")
+    if any(t is None for t in tiers) != all(t is None for t in tiers):
+        raise ValueError("eps_factor_sq, budget_rounds and skip_lb come "
+                         "together")
+    if tiers[0] is not None:
+        for t, name, dt in zip(tiers, ("eps_factor_sq", "budget_rounds",
+                                       "skip_lb"),
+                               (torch.float32, torch.int32, torch.float32)):
+            _build.require(t, name, dt, 1)
+    if (k > 1) != (out_d is not None) or (out_d is None) != (out_p is None):
+        raise ValueError("out_d and out_p are given exactly when k > 1")
+    if out_d is not None:
+        _build.require(out_d, "out_d", torch.float32, 2)
+        _build.require(out_p, "out_p", torch.int32, 2)
+        if out_d.shape != (n_q, round_size) or out_p.shape != out_d.shape:
+            raise ValueError(f"out_d and out_p must be ({n_q}, "
+                             f"{round_size})")
+    _build.same_device(cols, bounds, pos_table, raw, queries, top_d, top_p,
+                       reads, updates, state,
+                       *(t for t in (*tiers, out_d, out_p) if t is not None))
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    lib = _build.load()
+    err = lib.engine_round_launch(
+        cols.data_ptr(), bounds.data_ptr(), cols.stride(0), width,
+        round_size, r, pos_table.data_ptr(), raw.data_ptr(), raw.shape[0], n,
+        queries.data_ptr(), top_d.data_ptr(), top_d.stride(0),
+        top_p.data_ptr(), top_p.stride(0), k, reads.data_ptr(),
+        updates.data_ptr(), *map(ptr, tiers), ptr(out_d), ptr(out_p),
+        state.data_ptr(), n_q, _build.stream_of(raw))
+    _build.check(err, "engine_round")
+    round_launches.add()

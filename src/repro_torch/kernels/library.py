@@ -1,4 +1,4 @@
-"""The eight kernel entries as PyTorch operators: ``torch.ops.repro_torch.*``.
+"""The nine kernel entries as PyTorch operators: ``torch.ops.repro_torch.*``.
 
 A ``*_cuda`` wrapper hands raw pointers to ``ctypes``, so it cannot run on
 a fake tensor, and a tracer cannot see through it. Each entry is therefore
@@ -69,6 +69,14 @@ SCHEMAS = {
         "Tensor? prev_bounds=None, Tensor? prev_cols=None) "
         "-> (Tensor, Tensor)",
         _select.order_range_cuda),
+    "engine_round": (
+        "engine_round(Tensor cols, Tensor bounds, int r, int round_size, "
+        "Tensor pos_table, Tensor raw, Tensor queries, Tensor(a!) top_d, "
+        "Tensor(b!) top_p, Tensor(c!) reads, Tensor(d!) updates, "
+        "Tensor(e!) state, Tensor? eps_factor_sq=None, "
+        "Tensor? budget_rounds=None, Tensor(f!)? skip_lb=None, "
+        "Tensor(g!)? out_d=None, Tensor(h!)? out_p=None) -> ()",
+        _euclid.engine_round_cuda),
 }
 
 _lib = torch.library.Library(NAMESPACE, "DEF")
@@ -129,6 +137,14 @@ def _order_range_fake(bounds, cols, lo, hi, prev_bounds=None,
                       prev_cols=None):
     return (_empty(bounds, bounds.shape[0], hi - lo, dtype=torch.int32),
             _empty(bounds, bounds.shape[0], hi - lo))
+
+
+@torch.library.register_fake(f"{NAMESPACE}::engine_round")
+def _engine_round_fake(cols, bounds, r, round_size, pos_table, raw, queries,
+                       top_d, top_p, reads, updates, state,
+                       eps_factor_sq=None, budget_rounds=None, skip_lb=None,
+                       out_d=None, out_p=None):
+    return None  # it writes its arguments in place
 
 
 def _flops(op: str):

@@ -46,6 +46,7 @@ KERNELS = {
     "euclid_min": (_euclid, "min_launches"),
     "select": (_select, "select_launches"),
     "order_range": (_select, "range_launches"),
+    "engine_round": (_euclid, "round_launches"),
 }
 
 
@@ -270,3 +271,31 @@ def order_range(bounds: torch.Tensor, cols: torch.Tensor, lo: int, hi: int,
         prev_cols = prev_cols.contiguous()
     return _OPS.order_range(bounds.contiguous(), cols.contiguous(), lo, hi,
                             prev_bounds, prev_cols)
+
+
+def engine_round(cols, bounds, r: int, round_size: int, rows: tuple,
+                 queries, top_d, top_p, reads, updates, state, *,
+                 tiers: tuple = (None, None, None), out: tuple = (None, None),
+                 impl: str = "auto") -> None:
+    """Round ``r`` of the batch engine's main loop, in place: the exit test,
+    the mask, the distances of the masked-in rows, the k = 1 merge and the
+    counters (``ref.engine_round`` says what each argument holds).
+
+    ``rows`` is the view's ``(position table, raw rows)``; ``tiers`` the
+    tiered engine's ``(eps_factor_sq, budget_rounds, skip_lb)``; ``out``
+    the (Q, round_size) distances and positions a k > 1 round writes for
+    the engine's merge. ``state`` is (3Q + 2,) int64, zero but for its last
+    word, the exit flag, which the round writes. On the card one launch of
+    the round form of the gather kernel, counted in ``engine_round``; on
+    the CPU, or with ``impl="ref"``, the plain version, which launches and
+    counts nothing.
+    """
+    pos_table, raw = rows
+    if not _use_kernel(raw, impl):
+        _ref.engine_round(cols, bounds, r, round_size,
+                          *_ref.row_hooks(pos_table, raw), queries, top_d,
+                          top_p, reads, updates, state, *tiers, *out)
+        return
+    _OPS.engine_round(cols, bounds, r, round_size, pos_table, raw,
+                      queries.contiguous(), top_d, top_p, reads, updates,
+                      state, *tiers, *out)

@@ -12,6 +12,9 @@ and ``euclid_min`` kernels sum in another order and are held to them with
 a tolerance. :func:`smallest`, a ``torch.topk`` over int64 keys, is the
 selection's oracle; :func:`select` and :func:`order_range`, the plain
 versions of the selection kernels' two phases, are built on the same keys.
+:func:`engine_round` is the batch engine's one plain round: the round
+kernel's plain version, and the round of stores whose rows the kernel
+cannot read.
 """
 
 from __future__ import annotations
@@ -19,6 +22,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import isax
+
+INF = float("inf")
+NO_POS = -1  # the engine's unfilled result slot
 
 
 def lower_bound_sq(
@@ -217,3 +223,88 @@ def order_range(bounds: torch.Tensor, cols: torch.Tensor, lo: int,
                       sorted=True).values[:, lo:]
     return ((vals & 0xFFFFFFFF).to(torch.int32),
             (vals >> 32).to(torch.int32).view(torch.float32))
+
+
+def _padded(x: torch.Tensor, width: int, fill) -> torch.Tensor:
+    short = width - x.shape[1]
+    if short <= 0:
+        return x
+    return torch.cat([x, x.new_full((x.shape[0], short), fill)], dim=1)
+
+
+def row_hooks(pos_table: torch.Tensor, raw: torch.Tensor) -> tuple:
+    """The ``positions`` and ``distances`` of :func:`engine_round` over a
+    position table and raw rows, as the round kernel reads them: a lookup
+    in the table, and :func:`euclid_sq_gather` (clipped: ``NO_POS`` reads
+    row 0)."""
+    return (lambda cols: pos_table[cols.to(torch.int64)],
+            lambda queries, pos, mask: euclid_sq_gather(queries, raw, pos))
+
+
+def exit_test(head, kth, r: int, eps_factor_sq=None,
+              budget_rounds=None) -> torch.Tensor:
+    """The round's exit test, a 0-d bool on the device: does any query's
+    head bound (tiered: times ``eps_factor_sq``, within ``budget_rounds``)
+    beat its k-th best ``kth``?"""
+    if eps_factor_sq is None:
+        return (head < kth).any()
+    return ((r < budget_rounds) & (head * eps_factor_sq < kth)).any()
+
+
+def engine_round(cols, bounds, r: int, round_size: int, positions,
+                 distances, queries, top_d, top_p, reads, updates, state,
+                 eps_factor_sq=None, budget_rounds=None, skip_lb=None,
+                 out_d=None, out_p=None, head=None) -> None:
+    """Round ``r`` of the batch engine's loop, in place: the one plain
+    round, which the round kernel computes bit for bit and the engine runs
+    over stores whose rows it cannot give the kernel.
+
+    ``cols``/``bounds``: round r's (Q, W) columns and bounds, W <=
+    ``round_size`` (the rest padded with column 0 and +inf).
+    ``positions(cols)`` gives the (Q, round_size) positions of the columns
+    and ``distances(queries, positions, mask)`` their (Q, round_size)
+    squared distances, of which only the masked-in ones are read
+    (:func:`row_hooks` for a position table and raw rows).
+
+    The exit test (:func:`exit_test`) reads the k-th bests as they stand:
+    a query passes where its ``head`` (default ``bounds[:, 0]``; tiered:
+    times ``eps_factor_sq``, within ``budget_rounds``) beats its k-th best. ``state[-1]`` gets
+    whether any query passes; where none does, nothing else changes. Else
+    the masked-in candidates (bound < k-th best; tiered, the same test) are
+    distanced; ``reads`` gets each query's masked count, ``updates`` 1
+    where the round's smallest distance beats the k-th best, ``skip_lb``
+    the smallest bound the tier skipped. k = 1 merges the smallest (the
+    first column on ties) into ``top_d``/``top_p`` on strict improvement;
+    k > 1 writes the masked (Q, round_size) distances and positions (+inf
+    and ``NO_POS`` outside the mask) to ``out_d``/``out_p`` for the
+    engine's merge. The other words of ``state`` are the kernel's and stay
+    0. Nothing is read back to the host.
+    """
+    tiered = eps_factor_sq is not None
+    kth = top_d[:, -1].clone()
+    go = exit_test(bounds[:, 0] if head is None else head, kth, r,
+                   eps_factor_sq, budget_rounds)
+    state[-1] = go
+    lbs = _padded(bounds, round_size, INF)
+    below = (lbs < kth[:, None]) & go
+    if tiered:
+        mask = ((lbs * eps_factor_sq[:, None] < kth[:, None])
+                & (r < budget_rounds)[:, None] & go)
+        skip_lb.copy_(torch.minimum(
+            skip_lb, torch.where(below & ~mask, lbs, INF).amin(dim=1)))
+    else:
+        mask = below
+    cand_pos = positions(_padded(cols, round_size, 0))
+    d = torch.where(mask, distances(queries, cand_pos, mask), INF)
+    reads += mask.sum(dim=1, dtype=torch.int32)
+    updates += (d.amin(dim=1) < kth).to(torch.int32)
+    if out_d is None:  # k = 1: argmin + strict improvement
+        j = torch.argmin(d, dim=1, keepdim=True)
+        dj = d.gather(1, j)
+        better = dj < top_d
+        top_p.copy_(torch.where(better, cand_pos.gather(1, j), top_p))
+        top_d.copy_(torch.where(better, dj, top_d))
+    else:  # a failed exit test leaves them as they are
+        out_d.copy_(torch.where(go, d, out_d))
+        out_p.copy_(torch.where(go, torch.where(mask, cand_pos, NO_POS),
+                                out_p))

@@ -91,7 +91,12 @@ def kernel_cost(name: str, **shape) -> dict:
         (Q,) k-th bounds written once; no fp32 arithmetic;
       * ``order_range`` (``q`` rows of a list of ``n`` entries, ``m`` =
         hi - lo ordered a row): the list's bounds read once, the ``m``
-        columns of the range read, and the (Q, m) pairs written.
+        columns of the range read, and the (Q, m) pairs written;
+      * ``engine_round`` (``q`` queries of ``n``, ``r`` candidates a round,
+        ``rows_read`` masked-in rows, default all ``q * r``, ``k``): the
+        masked-in rows, the queries, the round's int32 columns and float32
+        bounds, and for k > 1 the (Q, r) distances and positions written;
+        3 operations a value read.
     """
     s = dict(shape)
     if name == "paa_isax":
@@ -128,6 +133,13 @@ def kernel_cost(name: str, **shape) -> dict:
     if name == "order_range":
         q, n, m = s["q"], s["n"], s["m"]
         return dict(bytes=q * n * 4 + q * m * 12, ops=0)
+    if name == "engine_round":
+        q, r, n = s["q"], s["r"], s["n"]
+        rows = s.get("rows_read")
+        rows = q * r if rows is None else rows
+        out = q * r * 8 if s.get("k", 1) > 1 else 0
+        return dict(bytes=rows * n * 4 + q * n * 4 + q * r * 8 + out,
+                    ops=rows * 3 * n)
     raise KeyError(f"unknown kernel {name!r}")
 
 
@@ -574,6 +586,10 @@ def kernel_cost_of_call(op: str, args, kwargs) -> dict:
         bounds, lo, hi = args[0], args[2], args[3]
         return kernel_cost("order_range", q=bounds.shape[0],
                            n=bounds.shape[1], m=hi - lo)
+    if op == "engine_round":  # every candidate masked in: the most
+        queries, top_d = args[6], args[7]
+        return kernel_cost("engine_round", q=queries.shape[0], r=args[3],
+                           n=queries.shape[1], k=top_d.shape[1])
     raise KeyError(f"unknown kernel op {op!r}")
 
 

@@ -96,8 +96,9 @@ def test_cuda_engine_matches_cpu_engine(cuda_device):
         _, _, ach = knn_batch_tiered(on_card, queries, Tier.epsilon(0.1), k=k,
                                      round_size=256)
         assert np.all(ach <= 0.1 + 1e-6)
-    counts = tops.launch_counts()  # the main path's three kernels
-    for name in ("paa_isax", "lower_bound_sq_batch", "euclid_sq"):
+    counts = tops.launch_counts()  # the main path's kernels
+    for name in ("paa_isax", "lower_bound_sq_batch", "euclid_sq",
+                 "engine_round"):
         assert counts[name] > 0, counts
 
 
@@ -481,7 +482,8 @@ def test_cuda_live_store_matches_cpu(cuda_device, tmp_path):
         assert torch.equal(card[stage][1], card["major"][1]), stage
     counts = card["counts"]
     assert counts["paa_isax"] == 5  # one per appended chunk
-    assert counts["lower_bound_sq_multi"] == 1 and counts["euclid_sq"] > 0
+    # the fused packed path distances its rows in the engine's round kernel
+    assert counts["lower_bound_sq_multi"] == 1 and counts["engine_round"] > 0
     assert cpu["counts"]["paa_isax"] == 0  # the CPU runs the plain versions
 
 
@@ -518,10 +520,52 @@ def test_cuda_cold_gather_stages_rows_bitwise(cuda_device, tmp_path):
     got = coldtier.cold_exact_knn_batch(shard, queries, k=8, round_size=256,
                                         stats=True)
     assert tops.launch_counts()["euclid_sq"] > 0
+    assert tops.launch_counts()["engine_round"] == 0  # host rows: plain
     want = exact_knn_batch(index, queries, k=8, round_size=256, stats=True)
     for g, w in zip(got[:4], want[:4]):
         assert torch.equal(g, w)
     assert got[4] == want[4]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("store", ["index", "packed"])
+def test_cuda_one_round_launch_a_round_tried(cuda_device, store):
+    """On the card ``launch_counts()["engine_round"]`` counts one launch for
+    every main-loop round the engine tries over the index and packed views,
+    the one whose exit test ends the loop included; the plain version
+    (``impl="ref"``) launches and counts none."""
+    from repro_torch.core import build_index
+    from repro_torch.core.search import (_packed_view, exact_knn_batch,
+                                         exact_knn_batch_packed,
+                                         pack_components, select_len)
+
+    raw = random_walk(6144, 128, seed=105)
+    queries = random_walk(8, 128, seed=106)
+    index = build_index(raw, device=cuda_device)
+    rs = 256
+    if store == "index":
+        n_rows = index.num_series
+
+        def run(impl):
+            return exact_knn_batch(index, queries, k=2, round_size=rs,
+                                   stats=True, impl=impl)
+    else:
+        packed = pack_components([(index, 0)])
+        n_rows = _packed_view(packed).n_rows
+
+        def run(impl):
+            return exact_knn_batch_packed(packed, queries, k=2,
+                                          round_size=rs, stats=True,
+                                          impl=impl)
+    main = -(-select_len(n_rows, rs) // rs)
+    tops.reset_launch_counts()
+    got = run("auto")
+    rounds = got[4]
+    assert tops.launch_counts()["engine_round"] == (
+        min(rounds, main) + (rounds < main))
+    tops.reset_launch_counts()
+    run("ref")
+    assert tops.launch_counts()["engine_round"] == 0
 
 
 def _routed_answers(router, queries, clients=3):
@@ -1142,6 +1186,144 @@ def test_cuda_select_and_order_range_bitwise(cuda_device, name):
                            plain[1].view(torch.int32))
         prev = (part[1][:, -1], part[0][:, -1])
     assert tops.launch_counts()["order_range"] == len(cuts) - 1
+
+
+def _engine_rounds(dev, q, rs, width, n, k, tiered, seed):
+    """Three rounds of the batch engine's loop on the card, as the kernel
+    and as its plain version (``ref.engine_round`` with the gather kernel's
+    distances, which launches no round) run them, chained: each round's
+    (q, width) columns and bounds are views of a wider list; a position
+    table over 2^14 z-normed rows has ``NO_POS`` pads (+inf bounds); query 2's first round holds two rows
+    equal to it (a tie at distance 0, the lower column wins); a third of
+    the candidates beat the k-th best, one result list is unfilled (+inf),
+    one is done (0). Yields each round's (name, kernel's tensor, plain
+    version's tensor) pairs."""
+    from repro_torch.kernels import euclidean
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    raw = tx.znorm(_t(random_walk(1 << 14, n, seed=seed)).to(dev))
+    pos_table = torch.cat([
+        torch.randperm(1 << 14, generator=gen, device=dev),
+        torch.full((512,), -1, device=dev)]).to(torch.int32)
+    qs = raw[torch.randint(0, 1 << 14, (q,), generator=gen, device=dev)]
+    qs = tx.znorm(qs + 0.5 * torch.randn(qs.shape, generator=gen,
+                                         device=dev))
+    wide = 3 * rs + 11
+    cols = torch.randint(0, pos_table.shape[0], (q, wide), generator=gen,
+                         device=dev, dtype=torch.int32)
+    # Query 2's round-0 columns 1 and 4: two rows equal to the query.
+    a, b = (int(pos_table[i]) for i in range(2))
+    cols[2, 7 + 1], cols[2, 7 + 4] = 0, 1
+    raw[a] = raw[b] = qs[2]
+    d = tops.euclid_sq_gather(qs, raw, pos_table[cols.long()])
+    kth = d.quantile(0.05, dim=1) + 1.0
+    top_d = torch.sort(torch.rand((q, k), generator=gen, device=dev), 1
+                       ).values * kth[:, None]
+    top_d[:, -1] = kth
+    top_d[0] = float("inf")
+    top_d[1] = 0.0
+    top_p = torch.randint(0, 1 << 14, (q, k), generator=gen, device=dev,
+                          dtype=torch.int32)
+    top_p[0] = -1
+    tiers = (None, None, None)
+    if tiered:
+        tiers = (1.0 + torch.rand(q, generator=gen, device=dev),
+                 torch.randint(0, 3, (q,), generator=gen, device=dev,
+                               dtype=torch.int32),
+                 torch.full((q,), float("inf"), device=dev))
+    sides = {}
+    for side in ("kernel", "plain"):
+        sides[side] = dict(
+            top=[top_d.clone(), top_p.clone(),
+                 torch.arange(q, dtype=torch.int32, device=dev),
+                 torch.zeros(q, dtype=torch.int32, device=dev)],
+            tiers=tuple(None if t is None else t.clone() for t in tiers),
+            state=torch.zeros(3 * q + 2, dtype=torch.int64, device=dev))
+    bounds = torch.empty((q, wide), device=dev)
+    for r in range(3):
+        # round r's bounds: a third below each k-th best as it stands
+        lo = 7 + r * rs
+        cur = sides["plain"]["top"][0][:, -1]
+        scale = torch.where(cur.isfinite(), cur, kth)[:, None] / 0.3
+        bounds[:, lo:lo + width] = torch.sort(torch.rand(
+            (q, width), generator=gen, device=dev), 1).values * scale
+        bounds[pos_table[cols.long()] < 0] = float("inf")
+        view = (cols[:, lo:lo + width], bounds[:, lo:lo + width])
+        outs = {}
+        for side, st in sides.items():
+            out = ((torch.full((q, rs), -7.0, device=dev),
+                    torch.full((q, rs), 9, dtype=torch.int32, device=dev))
+                   if k > 1 else (None, None))
+            hooks = (lambda c: pos_table[c.long()],
+                     lambda q_, p, m: tops.euclid_sq_gather(q_, raw, p))
+            args = (*view, r, rs, *hooks, qs, *st["top"], st["state"],
+                    *st["tiers"], *out)
+            before = euclidean.round_launches.value
+            if side == "kernel":
+                tops.engine_round(*view, r, rs, (pos_table, raw), qs,
+                                  *st["top"], st["state"], tiers=st["tiers"],
+                                  out=out)
+                torch.cuda.synchronize()
+                assert euclidean.round_launches.value == before + 1
+            else:
+                tref.engine_round(*args)
+                assert euclidean.round_launches.value == before
+            assert not st["state"][:-1].any()  # the words back at 0
+            outs[side] = out
+        a, b = sides["kernel"], sides["plain"]
+        names = ("top_d", "top_p", "reads", "updates")
+        pairs = list(zip(names, a["top"], b["top"]))
+        pairs += [("skip_lb", a["tiers"][2], b["tiers"][2]),
+                  ("flag", a["state"][-1:], b["state"][-1:]),
+                  ("out_d", *(o[0] for o in outs.values())),
+                  ("out_p", *(o[1] for o in outs.values()))]
+        yield r, [(nm, x, y) for nm, x, y in pairs if x is not None]
+        if k > 1:  # the engine's merge, the same on both sides
+            from repro_torch.core.search import merge_round
+            for side, st in sides.items():
+                st["top"][:2] = merge_round(*st["top"][:2], outs[side][1],
+                                            outs[side][0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,rs,width,n", [(64, 4096, 4096, 256),
+                                          (7, 300, 250, 100)])
+@pytest.mark.parametrize("k,tiered", [(1, False), (4, False), (1, True),
+                                      (4, True)])
+def test_cuda_engine_round_bitwise(cuda_device, q, rs, width, n, k, tiered):
+    """The round kernel against its plain version, bit for bit, at the main
+    path's shape (Q = 64, rs = 4096, n = 256) and at a ragged one (a round
+    shorter than rs, rs not a multiple of the block, n not of 4), round
+    after round: distances, positions, reads, updates, skip_lb and the
+    flag; a round whose exit test fails writes the flag alone."""
+    ran = 0
+    for r, pairs in _engine_rounds(cuda_device, q, rs, width, n, k, tiered,
+                                   seed=300 + q + k):
+        for name, got, want in pairs:
+            bits = [t.view(torch.int32) if t.is_floating_point() else t
+                    for t in (got, want)]
+            assert torch.equal(*bits), (r, name)
+        ran += 1
+    assert ran == 3
+    # every k-th best at 0: the test fails, and only the flag changes
+    z = torch.zeros((2, k), device=cuda_device)
+    p = torch.full((2, k), 5, dtype=torch.int32, device=cuda_device)
+    cnt = torch.ones(2, dtype=torch.int32, device=cuda_device)
+    state = torch.full((8,), 0, dtype=torch.int64, device=cuda_device)
+    state[-1] = 1
+    raw = torch.ones((4, n), device=cuda_device)
+    bnd = torch.zeros((2, 8), device=cuda_device)
+    col = torch.zeros((2, 8), dtype=torch.int32, device=cuda_device)
+    out = ((torch.full((2, 8), -7.0, device=cuda_device),
+            torch.full((2, 8), 9, dtype=torch.int32, device=cuda_device))
+           if k > 1 else (None, None))
+    tops.engine_round(col, bnd, 0, 8, (torch.zeros(4, dtype=torch.int32,
+                                                   device=cuda_device), raw),
+                      raw[:2], z, p, cnt, cnt.clone(), state, out=out)
+    torch.cuda.synchronize()
+    assert state.tolist() == [0] * 8 and (z == 0).all() and (p == 5).all()
+    assert cnt.tolist() == [1, 1]
+    assert out[0] is None or ((out[0] == -7).all() and (out[1] == 9).all())
 
 
 @pytest.mark.cuda

@@ -326,7 +326,7 @@ def test_dispatch_rules():
     assert tops.launch_counts() == {
         "paa_isax": 0, "lower_bound_sq_batch": 0, "lower_bound_sq": 0,
         "lower_bound_sq_multi": 0, "euclid_sq": 0, "euclid_min": 0,
-        "select": 0, "order_range": 0}
+        "select": 0, "order_range": 0, "engine_round": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
